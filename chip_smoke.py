@@ -8,11 +8,18 @@ Phases, each fatal on failure:
 1. device: the card's name and power limit (``nvidia-smi``); float32
    convolutions and matmuls in full float32 (TF32 off) and cuDNN
    deterministic, so that two runs differ only where the code differs;
-2. build: every CUDA kernel of the main path, from ``csrc/`` with nvcc;
+2. build: every CUDA kernel of the main path, from ``csrc/`` with nvcc,
+   one nvcc per source, all started together;
 3. check: each kernel against its plain PyTorch version on the card, at
-   the main path's shapes and at ragged ones, rtol = atol = 1e-6;
-4. timing: each kernel at the main path's shape, beside its bound, its
-   plain version and the nearest single PyTorch call;
+   the main path's shapes and at ragged ones: fill-aggregation within
+   rtol = atol = 1e-6, int8 quantize/dequantize bit for bit (exact ties,
+   zeros, clipping, the largest leaf and the whole master as one vector);
+4. timing: each kernel at the main path's shape (int8: its largest leaf,
+   and the whole master as one vector), beside its bound, its plain
+   version and the nearest single PyTorch call, all as device time
+   (calls queued behind a spin kernel), and the kernel's time per call
+   with the host's dispatch; one int8 roundtrip of the 126-leaf
+   full-width master on the kernel and torch routes, dispatch included;
 5. main path: ``FedEngine`` + ``RealTimeNas`` on the full 12-block CIFAR
    supernet (26,119,059 parameters), 8 clients, 2 generations, with
    Algorithm 3 on the kernel; the launch counts are zeroed just before
@@ -20,7 +27,16 @@ Phases, each fatal on failure:
 6. the same run with Algorithm 3 in plain PyTorch: equal keys and
    CommStats, masters within 1e-4; and the smoke-size run on the card
    against the same run on the CPU (the path the CPU tests hold against
-   the JAX package).
+   the JAX package);
+7. codec path: the phase-5 run with ``uplink_codec`` and
+   ``downlink_codec`` ``"int8:kernel"`` (launch counts zeroed before and
+   read after: 8 roundtrips x 126 leaves of each int8 kernel, 3
+   fill-aggregations), then with ``"int8:torch"``: equal keys and
+   CommStats, masters within 1e-4, wire bytes below logical bytes;
+8. baselines at full width with the ``"int8:kernel"`` uplink:
+   ``FedAvgBaseline`` on the all-residual key for 2 rounds and
+   ``OfflineNas`` with population 2 for 1 generation, each with its
+   launch counts zeroed before and read after.
 
 Prints the kernels as one JSON line, then the ``nvidia-smi`` line, then
 ``{"ok": true, "device": {...}}`` as the last line.  Exits non-zero
@@ -34,6 +50,7 @@ import math
 import subprocess
 import sys
 import time
+import warnings
 from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
@@ -45,7 +62,10 @@ from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import cnn_supernet_api  # noqa: E402
 from repro_torch.data import make_classification, make_clients, \
     partition_iid  # noqa: E402
-from repro_torch.engine import FedEngine, RunConfig  # noqa: E402
+from repro_torch.comm import make_codec  # noqa: E402
+from repro_torch.comm.quantize import leaf_scale  # noqa: E402
+from repro_torch.engine import FedAvgBaseline, FedEngine, OfflineNas, \
+    RunConfig  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
 
 TOL = 1e-6              # <= 8 float32 terms summed in another order, FMA
@@ -53,6 +73,8 @@ MASTER_TOL = 1e-4       # route-to-route gap of the final master
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 FP32_FLOPS = 67e12          # H100 SXM data sheet, float32 without tensor cores
 MAIN_M, MAIN_P = 8, 26_119_059   # uploads per train_fill x master params
+LEAF_P = 2_359_296               # the master's largest leaf (512 x 512 x 3 x 3)
+N_LEAVES = 126                   # float leaves of the full-width master
 # lr0 0.01, as the CPU parity tests: the compared runs then differ at
 # round-off and no argmax flips between them
 RUN = dict(population=4, generations=2, backend="loop", lr0=0.01,
@@ -107,7 +129,74 @@ def check_fill_aggregate() -> float:
     return worst
 
 
+def int8_inputs(p, seed, ties):
+    """(x, scale) on the card.  ``ties``: a power-of-two scale and x on
+    the half-steps k + 0.5 of its grid (exact ties, which round half to
+    even), every seventh entry zero and |k| up to 140 (beyond 127: they
+    clip); else normal x with the main path's scale, max|x| / 127."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    if not ties:
+        x = torch.randn(p, device="cuda", generator=g)
+        return x, leaf_scale(x)
+    scale = torch.tensor(2.0 ** -6, device="cuda")
+    k = torch.randint(-140, 140, (p,), device="cuda", generator=g).float()
+    x = (k + 0.5) * scale
+    x[::7] = 0.0
+    return x, scale
+
+
+def check_int8() -> tuple:
+    """K2a and K2b against their plain versions, bit for bit.  Returns
+    the largest absolute difference of each (int8 steps, and float32)."""
+    worst_q = worst_d = 0.0
+    for i, p in enumerate((1, 1000, 8193, 100_003, LEAF_P, MAIN_P)):
+        for ties in (False, True):
+            x, scale = int8_inputs(p, seed=100 + i, ties=ties)
+            q = ops.quantize_int8(x, scale)
+            d = ops.dequantize_int8(q, scale)
+            torch.cuda.synchronize()
+            q_plain = ref.quantize_int8(x, scale)
+            d_plain = ref.dequantize_int8(q, scale)
+            err_q = float((q.int() - q_plain.int()).abs().max())
+            err_d = float((d - d_plain).abs().max())
+            log(f"check int8 (P={p}, ties={ties}): max |kernel - plain| = "
+                f"{err_q!r} (quantize), {err_d!r} (dequantize)")
+            if not (torch.equal(q, q_plain) and torch.equal(
+                    d.view(torch.int32), d_plain.view(torch.int32))):
+                raise AssertionError(f"int8 kernels differ from the plain "
+                                     f"version at P={p}, ties={ties}")
+            if ties and p >= 1000 and int(q.abs().max()) != 127:
+                raise AssertionError("tie inputs did not reach the clip")
+            worst_q, worst_d = max(worst_q, err_q), max(worst_d, err_d)
+            del x, q, d, q_plain, d_plain
+    torch.cuda.empty_cache()
+    return worst_q, worst_d
+
+
+def device_ms(fn, reps: int, rounds: int = 5) -> float:
+    """Device time of one call: ``reps`` calls queued back to back behind
+    a spin kernel (so the host's dispatch time is hidden), timed with
+    CUDA events over the batch; the median over ``rounds`` batches."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(rounds):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(reps * 100_000)     # ~50 us of spinning per call
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        times.append((start, end))
+    torch.cuda.synchronize()
+    return float(np.median([s.elapsed_time(e) / reps for s, e in times]))
+
+
 def median_ms(fn, reps: int, warmup: int = 3) -> float:
+    """Time of one call as the main path makes it, the host's dispatch
+    included: events around each single call, median over ``reps``."""
     for _ in range(warmup):
         fn()
     times = []
@@ -130,22 +219,99 @@ def time_fill_aggregate(card: str) -> dict:
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = flops / FP32_FLOPS * 1e3
     res = {
-        "ms": median_ms(lambda: ops.fill_aggregate(cl, mk, w, prev), 30),
-        "plain_ms": median_ms(lambda: ref.fill_aggregate(cl, mk, w, prev),
-                              10),
+        "ms": device_ms(lambda: ops.fill_aggregate(cl, mk, w, prev), 10),
+        "plain_ms": device_ms(lambda: ref.fill_aggregate(cl, mk, w, prev),
+                              5),
         # nearest single PyTorch expression; timed here, never used
-        "library_ms": median_ms(
-            lambda: w @ torch.lerp(prev.expand_as(cl), cl, mk), 10),
+        "library_ms": device_ms(
+            lambda: w @ torch.lerp(prev.expand_as(cl), cl, mk), 5),
         "bound_ms": max(bytes_ms, ops_ms),
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
     }
+    call_ms = median_ms(lambda: ops.fill_aggregate(cl, mk, w, prev), 30)
     log(f"timing fill_aggregate (m={m}, P={p}) on {card}: kernel "
-        f"{res['ms']!r} ms, bound {res['bound_ms']!r} ms ({res['bound_by']}"
+        f"{res['ms']!r} ms (one call with its dispatch {call_ms!r} ms), bound {res['bound_ms']!r} ms ({res['bound_by']}"
         f", {nbytes} B), plain {res['plain_ms']!r} ms, library "
         f"{res['library_ms']!r} ms")
     del cl, mk, w, prev
     torch.cuda.empty_cache()
     return res
+
+
+def time_int8(card: str, p: int) -> dict:
+    """Each int8 kernel on one (P,) vector: kernel, bound, plain version
+    and the nearest single PyTorch call (torch's own per-tensor
+    quantization, whose grid reaches -128; timed here, never used)."""
+    x, scale = int8_inputs(p, seed=7, ties=False)
+    q = ops.quantize_int8(x, scale)
+    s = float(scale)               # the library call takes a host float
+    # bytes: quantize reads 4 B and writes 1 B per element, dequantize
+    # the reverse, and each reads the 4-byte scale; operations: a
+    # division, a rounding and two clamps per element, or one multiply
+    nbytes = 5 * p + 4
+    res = {}
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")      # quantized tensors: deprecated
+        try:
+            qt = torch.quantize_per_tensor(x, s, 0, torch.qint8)
+            lib = {"quantize_int8": lambda: torch.quantize_per_tensor(
+                       x, s, 0, torch.qint8),
+                   "dequantize_int8": qt.dequantize}
+        except (RuntimeError, NotImplementedError) as e:
+            log(f"library call torch.quantize_per_tensor unavailable on "
+                f"the card: {e}")
+            lib = None
+        for name, kernel, plain, n_ops in (
+                ("quantize_int8", lambda: ops.quantize_int8(x, scale),
+                 lambda: ref.quantize_int8(x, scale), 4 * p),
+                ("dequantize_int8", lambda: ops.dequantize_int8(q, scale),
+                 lambda: ref.dequantize_int8(q, scale), p)):
+            bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+            ops_ms = n_ops / FP32_FLOPS * 1e3
+            r = {"ms": device_ms(kernel, 50),
+                 "plain_ms": device_ms(plain, 20),
+                 "library_ms": (device_ms(lib[name], 20) if lib
+                                else None),
+                 "bound_ms": max(bytes_ms, ops_ms),
+                 "bound_by": "bytes" if bytes_ms >= ops_ms
+                 else "operations"}
+            call_ms = median_ms(kernel, 50)
+            log(f"timing {name} (P={p}) on {card}: kernel {r['ms']!r} ms "
+                f"(one call with its dispatch {call_ms!r} ms), bound {r['bound_ms']!r} ms ({r['bound_by']}, {nbytes} B), "
+                f"plain {r['plain_ms']!r} ms, library {r['library_ms']!r} ms")
+            res[name] = r
+    del x, q
+    torch.cuda.empty_cache()
+    return res
+
+
+def time_roundtrip(card: str, api) -> dict:
+    """One int8 roundtrip (scale, quantize, dequantize per leaf) of the
+    full-width master, kernel route against torch route."""
+    master = {k: v.cuda() for k, v in
+              api.init(torch.Generator().manual_seed(0)).items()}
+    n = sum(1 for v in master.values() if v.is_floating_point())
+    if n != N_LEAVES:
+        raise AssertionError(f"master has {n} float leaves")
+    out = {route: median_ms(
+        lambda: make_codec(f"int8:{route}").roundtrip(master), 10)
+        for route in ("kernel", "torch")}
+    log(f"timing int8 roundtrip of the {n}-leaf master on {card}: kernel "
+        f"route {out['kernel']!r} ms, torch route {out['torch']!r} ms")
+    return out
+
+
+def zero_launches() -> None:
+    for k in ops.LAUNCHES:
+        ops.LAUNCHES[k] = 0
+
+
+def expect_launches(label: str, expected: dict) -> dict:
+    got = dict(ops.LAUNCHES)
+    log(f"{label} launches: {got}")
+    if got != expected:
+        raise AssertionError(f"{label}: launches {got}, expected {expected}")
+    return got
 
 
 def full_width_clients():
@@ -160,12 +326,15 @@ def master_diff(a, b) -> float:
 
 def check_run(result, label: str) -> None:
     for r in result.reports:
-        if not np.isfinite(r.objs).all():
-            raise AssertionError(f"{label}: non-finite objectives {r.objs}")
-    master = result.extras["final_master"]
-    bad = [k for k, v in master.items() if not torch.isfinite(v).all()]
-    if bad:
-        raise AssertionError(f"{label}: non-finite master leaves {bad[:5]}")
+        objs = r.objs if r.objs is not None else r.best_err
+        if not np.isfinite(objs).all():
+            raise AssertionError(f"{label}: non-finite objectives {objs}")
+    for name in ("final_master", "params"):
+        model = result.extras.get(name, {})
+        bad = [k for k, v in model.items() if not torch.isfinite(v).all()]
+        if bad:
+            raise AssertionError(f"{label}: non-finite {name} leaves "
+                                 f"{bad[:5]}")
 
 
 def same_trajectory(a, b, label: str, tol: float) -> float:
@@ -202,7 +371,7 @@ def main() -> int:
 
     # 2. build
     t0 = time.perf_counter()
-    logs = build.build(["fill_aggregate"])
+    logs = build.build(["fill_aggregate", "quantize_int8"])
     log(f"build: {time.perf_counter() - t0:.2f} s")
     for name, text in logs.items():
         for line in text.splitlines():
@@ -211,27 +380,29 @@ def main() -> int:
 
     # 3. each kernel against its plain version (these launches don't count)
     max_err = check_fill_aggregate()
+    err_q, err_d = check_int8()
 
     # 4. timing
     timing = time_fill_aggregate(card)
-
-    # 5. the main path, kernel route, at full width
+    int8_timing = time_int8(card, LEAF_P)
+    time_int8(card, MAIN_P)
     cfg = get_config("cifar-supernet")
     api = cnn_supernet_api(cfg)
     if api.master_params() != MAIN_P:
         raise AssertionError(f"master has {api.master_params()} params")
+    time_roundtrip(card, api)
+
+    # 5. the main path, kernel route, at full width
     clients = full_width_clients()
     torch.cuda.reset_peak_memory_stats()
-    for k in ops.LAUNCHES:
-        ops.LAUNCHES[k] = 0
+    zero_launches()
     kernel_run = FedEngine(api, clients, RunConfig(
         aggregate_backend="kernel", **RUN)).run()
     torch.cuda.synchronize()
-    launches = dict(ops.LAUNCHES)
-    log(f"main path launches: {launches}")
-    if launches["fill_aggregate"] != 3:
-        raise AssertionError("expected 3 fill_aggregate launches (2 in "
-                             f"generation 1, 1 in generation 2): {launches}")
+    # 2 train_fill in generation 1, then 1 per generation
+    n_fill = RUN["generations"] + 1
+    launches = expect_launches("main path", {
+        "fill_aggregate": n_fill, "quantize_int8": 0, "dequantize_int8": 0})
     check_run(kernel_run, "main path")
     for r in kernel_run.reports:
         log(f"main path generation {r.gen}: round_s {r.round_s!r}, best_err "
@@ -247,6 +418,7 @@ def main() -> int:
         log(f"torch route generation {r.gen}: round_s {r.round_s!r}")
     same_trajectory(kernel_run, torch_run, "kernel vs torch route",
                     MASTER_TOL)
+    del kernel_run, torch_run
     smoke = cnn_supernet_api(get_config("cifar-supernet", smoke=True))
     x, y = make_classification(0, 480, image=8, signal=1.5, noise=0.5)
     small = make_clients(x, y, partition_iid(0, 480, 8), batch=20,
@@ -257,15 +429,91 @@ def main() -> int:
         aggregate_backend="torch", **dict(RUN, device="cpu"))).run()
     same_trajectory(gpu, cpu, "smoke size, card vs CPU", MASTER_TOL)
 
+    # 7. the codec path: int8 both ways, kernel route, then torch route.
+    # One roundtrip per leaf: the downlink before every train_fill and
+    # eval_shared, the uplink after every train_fill
+    roundtrips = 2 * n_fill + RUN["generations"]
+    codec_runs = {}
+    for route in ("kernel", "torch"):
+        spec = f"int8:{route}"
+        torch.cuda.reset_peak_memory_stats()
+        zero_launches()
+        run = FedEngine(api, clients, RunConfig(
+            uplink_codec=spec, downlink_codec=spec, **RUN)).run()
+        torch.cuda.synchronize()
+        n_int8 = roundtrips * N_LEAVES if route == "kernel" else 0
+        got = expect_launches(f"codec path {spec}", {
+            "fill_aggregate": n_fill, "quantize_int8": n_int8,
+            "dequantize_int8": n_int8})
+        check_run(run, f"codec path {spec}")
+        st = run.stats
+        if not (st.up_wire_bytes < st.up_bytes
+                and st.down_wire_bytes < st.down_bytes):
+            raise AssertionError(f"codec path {spec}: wire bytes not below "
+                                 f"logical bytes: {st}")
+        for r in run.reports:
+            log(f"codec path {spec} generation {r.gen}: round_s "
+                f"{r.round_s!r}, best_err {r.best_err!r}")
+        log(f"codec path {spec}: wire bytes {st.down_wire_bytes!r} down, "
+            f"{st.up_wire_bytes!r} up (logical {st.down_bytes!r}, "
+            f"{st.up_bytes!r}); peak device memory "
+            f"{torch.cuda.max_memory_allocated()} B")
+        codec_runs[route] = (run, got)
+    same_trajectory(codec_runs["kernel"][0], codec_runs["torch"][0],
+                    "codec path, int8 kernel vs torch route", MASTER_TOL)
+    codec_launches = codec_runs["kernel"][1]
+    del codec_runs
+
+    # 8. the baselines at full width, int8 uplink on the kernels; the
+    # downlink stays fp32, so one roundtrip per FedAvg aggregate
+    up = dict(RUN, uplink_codec="int8:kernel")
+    rounds = up["generations"]
+    zero_launches()
+    fedavg = FedEngine(api, clients, RunConfig(**up),
+                       strategy=FedAvgBaseline(np.ones(12))).run()
+    torch.cuda.synchronize()
+    expect_launches("FedAvgBaseline", {
+        "fill_aggregate": 0, "quantize_int8": rounds * N_LEAVES,
+        "dequantize_int8": rounds * N_LEAVES})
+    check_run(fedavg, "FedAvgBaseline")
+    log(f"FedAvgBaseline errors {[r.best_err for r in fedavg.reports]}, "
+        f"round_s {[r.round_s for r in fedavg.reports]}")
+    del fedavg
+    off = dict(up, population=2, generations=1)
+    # parents, then each generation's offspring: one model per individual
+    n_models = off["population"] * (1 + off["generations"])
+    zero_launches()
+    offline = FedEngine(api, clients, RunConfig(**off),
+                        strategy=OfflineNas()).run()
+    torch.cuda.synchronize()
+    expect_launches("OfflineNas", {
+        "fill_aggregate": 0, "quantize_int8": n_models * N_LEAVES,
+        "dequantize_int8": n_models * N_LEAVES})
+    check_run(offline, "OfflineNas")
+    log(f"OfflineNas objectives {offline.reports[0].objs.tolist()}, "
+        f"round_s {offline.reports[0].round_s!r}")
+
     kernels = [{
         "name": "fill_aggregate", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/fill_aggregate.cu",
         "replaces": "src/repro/kernels/fill_aggregate.py:29",
         "launches": launches["fill_aggregate"], "max_abs_err": max_err,
         **timing,
+    }, {
+        "name": "quantize_int8", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/quantize_int8.cu",
+        "replaces": "src/repro/kernels/quantize.py:56",
+        "launches": codec_launches["quantize_int8"], "max_abs_err": err_q,
+        **int8_timing["quantize_int8"],
+    }, {
+        "name": "dequantize_int8", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/quantize_int8.cu",
+        "replaces": "src/repro/kernels/quantize.py:61",
+        "launches": codec_launches["dequantize_int8"], "max_abs_err": err_d,
+        **int8_timing["dequantize_int8"],
     }]
     if any(not math.isfinite(k[f]) for k in kernels
-           for f in ("ms", "plain_ms", "library_ms", "bound_ms")):
+           for f in ("ms", "plain_ms", "bound_ms")):
         raise AssertionError(f"non-finite timing: {kernels}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card_line(), flush=True)

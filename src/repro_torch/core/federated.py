@@ -1,5 +1,6 @@
 """Federated client/server primitives (Algorithm 1 + the client side of
-Algorithm 4): local SGD over pre-batched shards and weighted evaluation.
+Algorithm 4): local SGD over pre-batched shards, weighted evaluation, and
+plain FedAvg rounds for the fixed-model baseline.
 
 Shards arrive as tensors (num_batches, B, ...) on the parameters' device;
 the choice key is a host int array.  Only the leaves of the selected
@@ -12,6 +13,7 @@ from typing import Callable, Dict, Sequence
 
 import torch
 
+from repro_torch.core.aggregate import fedavg
 from repro_torch.core.supernet import SupernetAPI
 from repro_torch.optim import sgd_init, sgd_update
 
@@ -63,3 +65,18 @@ def weighted_test_error(evaluate, params, key, clients: Sequence) -> float:
         wrong += int(evaluate(params, key, xb, yb))
         total += xb.shape[0] * xb.shape[1]
     return wrong / max(total, 1)
+
+
+def fedavg_round(update, params: Params, key, clients: Sequence, lr
+                 ) -> Params:
+    """One FedAvg round of the fixed-model baseline (all clients train the
+    same model; plain weighted averaging).  ``clients`` are
+    ``ClientDataset``s; their host shards move to the parameters'
+    device."""
+    dev = next(iter(params.values())).device
+    uploads = []
+    for c in clients:
+        xb, yb = (torch.as_tensor(a, device=dev) for a in c.train)
+        p_k = update(params, key, xb, yb, lr)
+        uploads.append((p_k, c.weight))
+    return fedavg(uploads)

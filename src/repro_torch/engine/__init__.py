@@ -1,21 +1,33 @@
-"""Federated NAS engine: strategy x execution backend.
+"""Federated NAS engine: strategy x execution backend x payload codec.
 
     FedEngine(api, clients, RunConfig(device="cuda"), strategy=RealTimeNas())
 
-Ported so far: the ``RealTimeNas`` strategy (Algorithm 4) on the
-``"loop"`` backend, with client availability (``ClientSimConfig``).
+Strategies: RealTimeNas (Algorithm 4), OfflineNas (Zhu & Jin 2019
+baseline), FedAvgBaseline (Algorithm 1, fixed architecture).  Backend:
+"loop" (reference, one local update per (individual, client) pair).
+Payload codecs (``RunConfig.uplink_codec`` / ``downlink_codec`` ->
+``repro_torch.comm``) compress what crosses the wire around any
+strategy.  Client availability (``RunConfig.client_sim`` ->
+``ClientSimConfig``) simulates per-round availability, post-download
+dropout and stragglers, with survivor-masked aggregation and a
+wasted-bytes CommStats ledger.
 """
+from repro_torch.comm import CodecBackend, PayloadCodec, make_codec
 from repro_torch.engine.availability import ClientSimulator, RoundSim
-from repro_torch.engine.backends import LoopBackend, make_backend
+from repro_torch.engine.backends import ExecutionBackend, LoopBackend, \
+    make_backend
 from repro_torch.engine.engine import FedEngine
-from repro_torch.engine.strategies import RealTimeNas
+from repro_torch.engine.strategies import FedAvgBaseline, OfflineNas, \
+    RealTimeNas, Strategy
 from repro_torch.engine.types import AGGREGATE_BACKENDS, BYTES_PER_PARAM, \
     ClientSimConfig, CommStats, EngineResult, ERROR_COUNT_BYTES, \
     RoundReport, RunConfig, history_dict
 
 __all__ = [
     "AGGREGATE_BACKENDS", "BYTES_PER_PARAM", "ClientSimConfig",
-    "ClientSimulator", "CommStats", "ERROR_COUNT_BYTES", "EngineResult",
-    "FedEngine", "LoopBackend", "RealTimeNas", "RoundReport", "RoundSim",
-    "RunConfig", "history_dict", "make_backend",
+    "ClientSimulator", "CodecBackend", "CommStats", "ERROR_COUNT_BYTES",
+    "EngineResult", "ExecutionBackend", "FedAvgBaseline", "FedEngine",
+    "LoopBackend", "OfflineNas", "PayloadCodec", "RealTimeNas",
+    "RoundReport", "RoundSim", "RunConfig", "Strategy", "history_dict",
+    "make_backend", "make_codec",
 ]

@@ -6,7 +6,10 @@ engine, so every backend sees the same inputs):
 
   * ``train_fill``  — train keys[i]'s sub-model on client group i from a
     shared master and fill-aggregate the uploads (Algorithm 3/4).
-  * ``eval_shared`` — weighted test error of K keys on a shared master.
+  * ``train_fedavg`` / ``train_fedavg_population`` — FedAvg rounds of
+    standalone models (Algorithm 1; the baselines).
+  * ``eval_shared`` / ``eval_paired`` — weighted test error of K keys on
+    one shared master, or of K (params, key) pairs.
 
 ``LoopBackend`` is the reference: one local update per (individual,
 client) pair, on ``RunConfig.device``.  Algorithm 3 routes through
@@ -17,17 +20,73 @@ skipped.
 """
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Any, List, Protocol, Sequence
 
 import numpy as np
 import torch
 
-from repro_torch.core.aggregate import fill_aggregate
+from repro_torch.core.aggregate import fedavg, fill_aggregate
 from repro_torch.core.federated import client_update_fn, eval_count_fn, \
     weighted_test_error
 from repro_torch.core.supernet import SupernetAPI
 from repro_torch.data.pipeline import ClientDataset
 from repro_torch.engine.types import RunConfig
+
+Params = Any
+
+
+class ExecutionBackend(Protocol):
+    """The dispatch contract every backend implements.
+
+    ``dispatches`` counts client updates, client evaluations and
+    aggregations issued so far.  All ``keys`` are (num_blocks,) int32
+    choice keys; ``client_ids`` / ``groups`` index into the backend's
+    client list; ``lr`` is the round's learning rate.  ``survivors`` is
+    ``None`` (every client completes) or the set of client ids whose
+    uploads arrive this round (``ClientSimConfig`` dropout):
+    non-survivors contribute nothing to aggregation or error counts,
+    with weights renormalized over survivors.  Returned parameters are
+    full ``dict[str, Tensor]`` trees; ``eval_*`` return (len(keys),)
+    float64 weighted test-error rates in [0, 1] over the surviving
+    participants."""
+
+    name: str
+    dispatches: int
+
+    def train_fill(self, master: Params, keys: Sequence[np.ndarray],
+                   groups: Sequence[np.ndarray], lr: float,
+                   survivors=None) -> Params:
+        """Train keys[g] on client group g from the shared master and
+        fill-aggregate the surviving uploads into the new master
+        (Algorithm 3/4); groups may be empty (their individuals'
+        blocks are filled from the previous master)."""
+        ...
+
+    def train_fedavg(self, params: Params, key: np.ndarray,
+                     client_ids: np.ndarray, lr: float,
+                     survivors=None) -> Params:
+        """One FedAvg round of ``key``'s standalone model over every
+        listed client (Algorithm 1)."""
+        ...
+
+    def train_fedavg_population(self, params_list: Sequence[Params],
+                                keys: Sequence[np.ndarray],
+                                client_ids: np.ndarray,
+                                lr: float, survivors=None) -> List[Params]:
+        """``train_fedavg`` for each (params, key) pair — every client
+        trains every individual (the offline baseline)."""
+        ...
+
+    def eval_shared(self, params: Params, keys: Sequence[np.ndarray],
+                    client_ids: np.ndarray, survivors=None) -> np.ndarray:
+        """Weighted test-error rate of every key on one shared master."""
+        ...
+
+    def eval_paired(self, params_list: Sequence[Params],
+                    keys: Sequence[np.ndarray],
+                    client_ids: np.ndarray, survivors=None) -> np.ndarray:
+        """Weighted test-error rate of every (params, key) pair."""
+        ...
 
 
 class LoopBackend:
@@ -35,6 +94,8 @@ class LoopBackend:
     pair.  Each client's shard moves to ``cfg.device`` when it is used;
     ``dispatches`` counts client updates, client evaluations and
     aggregations."""
+
+    name = "loop"
 
     def __init__(self, api: SupernetAPI, clients: Sequence[ClientDataset],
                  cfg: RunConfig):
@@ -73,14 +134,37 @@ class LoopBackend:
         return fill_aggregate(master, uploads,
                               backend=self.cfg.aggregate_backend)
 
+    def train_fedavg(self, params, key, client_ids, lr, survivors=None):
+        uploads = []
+        for cid in client_ids:
+            if not self._alive(survivors, cid):
+                continue
+            c = self.clients[int(cid)]
+            xb, yb = self._shard(c.train)
+            uploads.append((self.update(params, key, xb, yb, lr), c.weight))
+            self.dispatches += 1
+        if not uploads:
+            return params
+        self.dispatches += 1
+        return fedavg(uploads)
+
+    def train_fedavg_population(self, params_list, keys, client_ids, lr,
+                                survivors=None):
+        return [self.train_fedavg(p, k, client_ids, lr, survivors=survivors)
+                for p, k in zip(params_list, keys)]
+
     def eval_shared(self, params, keys, client_ids, survivors=None):
+        return self.eval_paired([params] * len(keys), keys, client_ids,
+                                survivors=survivors)
+
+    def eval_paired(self, params_list, keys, client_ids, survivors=None):
         part = [self._shard(self.clients[int(i)].test) for i in client_ids
                 if self._alive(survivors, i)]
         if not part:                   # nobody evaluated: pessimistic 1.0
             return np.ones(len(keys))
         errs = []
-        for k in keys:
-            errs.append(weighted_test_error(self.evaluate, params, k, part))
+        for p, k in zip(params_list, keys):
+            errs.append(weighted_test_error(self.evaluate, p, k, part))
             self.dispatches += len(part)
         return np.asarray(errs)
 

@@ -3,7 +3,9 @@
 The engine owns participant sampling, client availability, the
 per-round lr schedule, communication/compute accounting and the typed
 ``RoundReport`` history, and delegates the rest to a ``Strategy`` (what
-happens inside a round) and an execution backend (how client work runs).
+happens inside a round) and an execution backend (how client work runs),
+which it wraps in ``repro_torch.comm.CodecBackend`` when a payload codec
+is lossy.
 
     engine = FedEngine(api, clients, RunConfig(device="cuda"))
     result = engine.run()            # EngineResult
@@ -16,6 +18,7 @@ from typing import Callable, Optional, Sequence
 import numpy as np
 import torch
 
+from repro_torch.comm import CodecBackend, make_codec
 from repro_torch.core.double_sampling import sample_participants
 from repro_torch.core.supernet import SupernetAPI
 from repro_torch.data.pipeline import ClientDataset
@@ -37,7 +40,8 @@ class FedEngine:
       * ``cfg`` — a ``RunConfig`` (defaults to ``RunConfig()``, which runs
         on ``"cuda"``).
       * ``strategy`` — what happens inside a round; defaults to
-        ``RealTimeNas()`` (paper Algorithm 4).
+        ``RealTimeNas()`` (paper Algorithm 4); ``OfflineNas()`` and
+        ``FedAvgBaseline(key)`` are the paper's baselines.
       * ``backend`` — an execution backend name overriding
         ``cfg.backend``, or an already-built backend.
 
@@ -67,6 +71,16 @@ class FedEngine:
                                         api, self.clients, self.cfg)
         else:
             self.backend = backend
+        # payload codecs (repro_torch.comm): strategies read these for
+        # wire-byte accounting; lossy codecs additionally wrap the
+        # execution backend so encode->decode happens around every client
+        # train/eval
+        self.uplink_codec = make_codec(self.cfg.uplink_codec)
+        self.downlink_codec = make_codec(self.cfg.downlink_codec)
+        if not (self.uplink_codec.is_identity
+                and self.downlink_codec.is_identity):
+            self.backend = CodecBackend(self.backend, self.uplink_codec,
+                                        self.downlink_codec)
         self.rng = np.random.default_rng(self.cfg.seed)
         self.stats = CommStats()
         self.reports: list[RoundReport] = []
@@ -86,6 +100,9 @@ class FedEngine:
         self.stats = CommStats()
         self.reports = []
         self.backend.dispatches = 0
+        reset = getattr(self.backend, "reset", None)
+        if reset is not None:        # CodecBackend: drop EF residuals
+            reset()
         self.sim = ClientSimulator(cfg.client_sim, len(self.clients))
         self.strategy.setup(self)
         # every round ends in host reads of its error counts, which wait

@@ -5,8 +5,9 @@ downloads/uploads, Algorithm 3/4) and the evaluation-phase traffic the
 paper's Section IV.G comparison needs: the 2N choice-key downloads before
 fitness evaluation and the per-client error-count uploads afterwards.
 Every byte is counted twice, as fp32-*logical* bytes (``BYTES_PER_PARAM``
-per parameter — the paper's Section IV.G unit) and as *wire* bytes; with
-no payload codec (the only setting ported so far) the two are equal.
+per parameter — the paper's Section IV.G unit) and as *wire* bytes, what
+the ``RunConfig.uplink_codec`` / ``downlink_codec`` payload codecs put on
+the network; with ``"none"`` codecs the two are equal.
 ``RoundReport`` is the typed per-round history record every strategy
 produces; ``history_dict`` flattens a list of reports into a
 dict-of-lists.
@@ -183,8 +184,20 @@ class RunConfig:
         dropout, stragglers against a round deadline.  The default
         simulates nothing.
 
-    Payload codecs (``uplink_codec`` / ``downlink_codec``) and telemetry
-    are not ported yet: anything but ``"none"`` / ``None`` raises.
+    Communication (``repro_torch.comm``; validated here like
+    ``aggregate_backend``):
+      * ``uplink_codec`` — payload codec for client->server transfers
+        (trained sub-model uploads).  ``"none"`` (fp32), ``"cast"`` /
+        ``"cast:bf16"`` / ``"cast:fp16"`` (16-bit float), ``"int8"`` /
+        ``"int8:kernel"`` / ``"int8:torch"`` (per-tensor symmetric
+        quantization, on the hand-written CUDA kernels or in plain
+        PyTorch), ``"topk"`` / ``"topk:<ratio>"`` (magnitude
+        sparsification).  Lossy uplink codecs compose with server-side
+        error feedback on the persistent-model paths.
+      * ``downlink_codec`` — same spec grammar for server->client
+        transfers (master broadcasts / sub-model downloads).
+
+    Telemetry is not ported yet: anything but ``None`` raises.
     """
     population: int = 10
     generations: int = 500
@@ -233,12 +246,11 @@ class RunConfig:
         if self.local_epochs < 0:
             raise ValueError(
                 f"local_epochs must be >= 0, got {self.local_epochs}")
-        for name in ("uplink_codec", "downlink_codec"):
-            if getattr(self, name) != "none":
-                raise ValueError(
-                    f"{name}={getattr(self, name)!r}: payload codecs are not "
-                    "yet ported to repro_torch (ROADMAP queue 1: codecs); "
-                    "use 'none'")
+        # codec specs fail here, at config time (ValueError lists the
+        # available names)
+        from repro_torch.comm import make_codec
+        make_codec(self.uplink_codec)
+        make_codec(self.downlink_codec)
         if self.telemetry is not None:
             raise ValueError(
                 "telemetry is not yet ported to repro_torch (ROADMAP queue "

@@ -12,7 +12,8 @@ import torch
 
 from repro_torch.kernels import ref
 
-LAUNCHES = {"fill_aggregate": 0}
+LAUNCHES = {"fill_aggregate": 0, "quantize_int8": 0,
+            "dequantize_int8": 0}
 
 
 def _common_device(name: str, *tensors: torch.Tensor) -> torch.device:
@@ -53,4 +54,46 @@ def fill_aggregate(clients: torch.Tensor, masks: torch.Tensor,
     from repro_torch.kernels import fill_aggregate as _fa
     out = _fa.launch(clients, masks, weights, prev)
     LAUNCHES["fill_aggregate"] += 1
+    return out
+
+
+def _check_int8_args(name: str, src: torch.Tensor, src_dtype: torch.dtype,
+                     scale: torch.Tensor) -> torch.device:
+    dev = _common_device(name, src, scale)
+    if src.dtype != src_dtype:
+        raise TypeError(f"{name}: input must be {src_dtype}, got {src.dtype}")
+    if scale.dtype != torch.float32:
+        raise TypeError(f"{name}: scale must be float32, got {scale.dtype}")
+    if src.dim() != 1 or src.numel() < 1:
+        raise ValueError(f"{name}: need a non-empty (P,) input, got shape "
+                         f"{tuple(src.shape)}")
+    if scale.numel() != 1 or scale.dim() > 1:
+        raise ValueError(f"{name}: scale must be 0-d or (1,), got shape "
+                         f"{tuple(scale.shape)}")
+    if not src.is_contiguous():
+        raise ValueError(f"{name}: input must be contiguous")
+    return dev
+
+
+def quantize_int8(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """x: (P,) float32, contiguous; scale: one float32 on x's device ->
+    (P,) int8 on the symmetric grid (kernel K2a)."""
+    dev = _check_int8_args("quantize_int8", x, torch.float32, scale)
+    if dev.type == "cpu":
+        return ref.quantize_int8(x, scale)
+    from repro_torch.kernels import quantize as _q
+    out = _q.quantize(x, scale)
+    LAUNCHES["quantize_int8"] += 1
+    return out
+
+
+def dequantize_int8(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """q: (P,) int8, contiguous; scale: one float32 on q's device -> (P,)
+    float32 ``q * scale`` (kernel K2b)."""
+    dev = _check_int8_args("dequantize_int8", q, torch.int8, scale)
+    if dev.type == "cpu":
+        return ref.dequantize_int8(q, scale)
+    from repro_torch.kernels import quantize as _q
+    out = _q.dequantize(q, scale)
+    LAUNCHES["dequantize_int8"] += 1
     return out

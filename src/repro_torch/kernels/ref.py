@@ -17,3 +17,20 @@ def fill_aggregate(clients, masks, weights, prev):
     mk = masks.float()
     filled = mk * cl + (1 - mk) * prev.float()[None, :]
     return torch.einsum("m,mp->p", weights.float(), filled).to(prev.dtype)
+
+
+def quantize_int8(x, scale):
+    """x: (P,) float; scale: 0-d or (1,) float32 -> (P,) int8 on the
+    symmetric 255-level grid: ``x / scale`` rounded half to even, clipped
+    to [-127, 127].  A true division, as the JAX package's: a multiply by
+    ``1 / scale`` moves some results across a rounding tie.  (PyTorch
+    itself divides by a reciprocal when the divisor is a CPU scalar and
+    the dividend a CUDA tensor, so ``scale`` must lie beside ``x``.)"""
+    return torch.clamp(torch.round(x.float() / scale), -127, 127).to(
+        torch.int8)
+
+
+def dequantize_int8(q, scale):
+    """q: (P,) int8; scale: 0-d or (1,) float32 -> (P,) float32
+    (``q * scale``)."""
+    return q.float() * scale

@@ -1,10 +1,13 @@
-"""repro_torch fill-aggregation: the plain version and both Algorithm 3
-routes against the JAX package, the wrapper's checks, and — on a CUDA
-card only — the hand-written kernel against its plain version.
+"""repro_torch kernels: fill-aggregation's plain version and both
+Algorithm 3 routes against the JAX package, the wrappers' checks, and —
+on a CUDA card only — the hand-written kernels (fill-aggregation, int8
+quantize and dequantize) against their plain versions.
 
 Tolerances: float32 sums of at most 8 terms taken in another order, so
 1e-6 (rtol and atol) for the flat function; the tree routes add the
-float32 rounding of ``w / total`` and are held at 1e-6 too.
+float32 rounding of ``w / total`` and are held at 1e-6 too.  The int8
+kernels are held bit for bit (tests/test_torch_comm.py holds the plain
+versions bit for bit against the JAX package).
 """
 import pytest
 
@@ -127,6 +130,27 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(case):
     assert ops.LAUNCHES["fill_aggregate"] == 0
 
 
+@pytest.mark.parametrize("fn", ["quantize_int8", "dequantize_int8"])
+@pytest.mark.parametrize("case", ["dtype", "scale_dtype", "rank", "empty",
+                                  "scale_shape", "contiguous",
+                                  "mixed_devices"])
+def test_int8_wrappers_reject_what_the_kernels_do_not_take(fn, case):
+    src = (torch.ones(64) if fn == "quantize_int8"
+           else torch.ones(64, dtype=torch.int8))
+    other = src.to(torch.float64 if fn == "quantize_int8" else torch.int32)
+    s = torch.tensor(0.5)
+    args = {"dtype": (other, s),
+            "scale_dtype": (src, s.double()),
+            "rank": (src.view(8, 8), s),
+            "empty": (src[:0], s),
+            "scale_shape": (src, torch.ones(2)),
+            "contiguous": (src[::2], s),
+            "mixed_devices": (src, s.to("meta"))}[case]
+    with pytest.raises((TypeError, ValueError)):
+        getattr(ops, fn)(*args)
+    assert ops.LAUNCHES[fn] == 0
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
@@ -154,3 +178,25 @@ def test_cuda_kernel_matches_plain_version(cuda, m, p):
     w1 = w / w.sum()
     torch.testing.assert_close(ops.fill_aggregate(cl, zeros, w1, prev), prev,
                                rtol=TOL, atol=TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("p", [1, 1000, 8193, 100003, 2_359_296])
+def test_cuda_int8_kernels_match_plain_version(cuda, p):
+    g = torch.Generator(device=cuda).manual_seed(p)
+    x = torch.randn(p, device=cuda, generator=g)
+    # a power-of-two scale below max|x| / 127: exact ties and clipping
+    scale = torch.tensor(2.0 ** -6, device=cuda)
+    x[: p // 4] = torch.round(x[: p // 4] / scale) * scale + scale / 2
+    x[-1] = 10.0
+    before = dict(ops.LAUNCHES)
+    q = ops.quantize_int8(x, scale)
+    d = ops.dequantize_int8(q, scale)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["quantize_int8"] == before["quantize_int8"] + 1
+    assert ops.LAUNCHES["dequantize_int8"] == before["dequantize_int8"] + 1
+    assert q.dtype == torch.int8 and q.device.type == "cuda"
+    assert torch.equal(q, ref.quantize_int8(x, scale))
+    assert torch.equal(d.view(torch.int32),
+                       ref.dequantize_int8(q, scale).view(torch.int32))
+    assert int(q[-1]) == 127               # 640 clips
