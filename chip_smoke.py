@@ -36,7 +36,29 @@ Phases, each fatal on failure:
 8. baselines at full width with the ``"int8:kernel"`` uplink:
    ``FedAvgBaseline`` on the all-residual key for 2 rounds and
    ``OfflineNas`` with population 2 for 1 generation, each with its
-   launch counts zeroed before and read after.
+   launch counts zeroed before and read after;
+9. flash attention (K3) and the SSD chunk scan (K4) against their plain
+   versions on the card: K3 in float32 and bfloat16 at the shapes of the
+   JAX package's kernel sweep (GQA, MQA, S = 384), S = 100 (one ragged
+   tile), head dim 80 and qwen1.5-0.5b's prefill (4, 1024, 16, 16, 64),
+   each causal, with window 64 and 256, and bidirectional (rtol 2e-5 /
+   atol 1e-4 in float32, 2^-7 / 1e-3 in bfloat16: one rounding of the
+   output); K4 at the sweep's
+   shapes, two P tiles and mamba2-780m's prefill (rtol = atol = 2e-4);
+   each timed at its serving shape beside its bound and its plain
+   version, K3 also beside ``scaled_dot_product_attention``;
+10. the serving path at full width, bf16, seeded random weights on the
+   card, 4 requests: for qwen1.5-0.5b (1024-token prompt; also with
+   window 256) and mamba2-780m (1000-token prompt: chunk padding),
+   ``make_prefill_step`` on the kernel route (launch counts zeroed
+   before and read after: 24 of K3, or 48 of K4, per prefill) against
+   the torch route, within LOGIT_TOL of the logits' largest magnitude
+   (15 % in bf16; 0.1 % in a float32 prefill at the same widths and
+   depth);
+   ``greedy_generate`` of 16 tokens on a 64-token prompt with no kernel
+   launch (decode replays, as the JAX package's ``prefill_cache``);
+   prefill time, decode tokens/s and peak memory; and, at smoke size in
+   float32, prefill logits against the decode replay within 1e-3.
 
 Prints the kernels as one JSON line, then the ``nvidia-smi`` line, then
 ``{"ok": true, "device": {...}}`` as the last line.  Exits non-zero
@@ -67,11 +89,15 @@ from repro_torch.comm.quantize import leaf_scale  # noqa: E402
 from repro_torch.engine import FedAvgBaseline, FedEngine, OfflineNas, \
     RunConfig  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
+from repro_torch.launch.serve import greedy_generate, make_decode_step, \
+    make_prefill_step  # noqa: E402
+from repro_torch.models import transformer as tr  # noqa: E402
 
 TOL = 1e-6              # <= 8 float32 terms summed in another order, FMA
 MASTER_TOL = 1e-4       # route-to-route gap of the final master
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 FP32_FLOPS = 67e12          # H100 SXM data sheet, float32 without tensor cores
+BF16_FLOPS = 989e12         # H100 SXM data sheet, dense bf16 tensor cores
 MAIN_M, MAIN_P = 8, 26_119_059   # uploads per train_fill x master params
 LEAF_P = 2_359_296               # the master's largest leaf (512 x 512 x 3 x 3)
 N_LEAVES = 126                   # float leaves of the full-width master
@@ -211,13 +237,20 @@ def median_ms(fn, reps: int, warmup: int = 3) -> float:
     return float(np.median([s.elapsed_time(e) for s, e in times]))
 
 
+def bound(nbytes: float, flops: float, peak: float) -> dict:
+    """The least time for moving ``nbytes`` and doing ``flops`` at
+    ``peak``: the larger of the two, and which one it is."""
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = flops / peak * 1e3
+    return {"bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+
+
 def time_fill_aggregate(card: str) -> dict:
     m, p = MAIN_M, MAIN_P
     cl, mk, w, prev = fill_inputs(m, p, seed=99)
     nbytes = (2 * m + 1) * p * 4 + m * 4 + p * 4
     flops = 6 * m * p      # (1 - mk), two products, a sum, then an FMA
-    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = flops / FP32_FLOPS * 1e3
     res = {
         "ms": device_ms(lambda: ops.fill_aggregate(cl, mk, w, prev), 10),
         "plain_ms": device_ms(lambda: ref.fill_aggregate(cl, mk, w, prev),
@@ -225,8 +258,7 @@ def time_fill_aggregate(card: str) -> dict:
         # nearest single PyTorch expression; timed here, never used
         "library_ms": device_ms(
             lambda: w @ torch.lerp(prev.expand_as(cl), cl, mk), 5),
-        "bound_ms": max(bytes_ms, ops_ms),
-        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        **bound(nbytes, flops, FP32_FLOPS),
     }
     call_ms = median_ms(lambda: ops.fill_aggregate(cl, mk, w, prev), 30)
     log(f"timing fill_aggregate (m={m}, P={p}) on {card}: kernel "
@@ -266,15 +298,11 @@ def time_int8(card: str, p: int) -> dict:
                  lambda: ref.quantize_int8(x, scale), 4 * p),
                 ("dequantize_int8", lambda: ops.dequantize_int8(q, scale),
                  lambda: ref.dequantize_int8(q, scale), p)):
-            bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-            ops_ms = n_ops / FP32_FLOPS * 1e3
             r = {"ms": device_ms(kernel, 50),
                  "plain_ms": device_ms(plain, 20),
                  "library_ms": (device_ms(lib[name], 20) if lib
                                 else None),
-                 "bound_ms": max(bytes_ms, ops_ms),
-                 "bound_by": "bytes" if bytes_ms >= ops_ms
-                 else "operations"}
+                 **bound(nbytes, n_ops, FP32_FLOPS)}
             call_ms = median_ms(kernel, 50)
             log(f"timing {name} (P={p}) on {card}: kernel {r['ms']!r} ms "
                 f"(one call with its dispatch {call_ms!r} ms), bound {r['bound_ms']!r} ms ({r['bound_by']}, {nbytes} B), "
@@ -307,6 +335,9 @@ def zero_launches() -> None:
 
 
 def expect_launches(label: str, expected: dict) -> dict:
+    """Read the launch counts; every kernel not in ``expected`` must
+    have launched no time."""
+    expected = {**dict.fromkeys(ops.LAUNCHES, 0), **expected}
     got = dict(ops.LAUNCHES)
     log(f"{label} launches: {got}")
     if got != expected:
@@ -355,6 +386,283 @@ def same_trajectory(a, b, label: str, tol: float) -> float:
     return diff
 
 
+# ---------------------------------------------------------------------------
+# phases 9-10: flash attention (K3), the SSD chunk scan (K4), serving
+# ---------------------------------------------------------------------------
+
+# kernel against plain version, (rtol, atol).  Both compute in float32
+# and round the output once to the input's type, so in bfloat16 they may
+# differ by one rounding of the output, at most 2^-7 of its magnitude
+# (measured: <= 3.9e-3, NVIDIA H100 80GB HBM3, 700 W); atol 1e-3 covers
+# the float32 gaps near zero.  The JAX sweep's bfloat16 limits (2e-2 /
+# 1e-1) are as wide as a typical output entry at the serving shape.
+FLASH_TOL = {torch.float32: (2e-5, 1e-4), torch.bfloat16: (2 ** -7, 1e-3)}
+SSD_TOL = 2e-4
+QWEN_ATTN = (4, 1024, 16, 16, 64)       # B, S, H, Kh, D of a qwen prefill
+MAMBA_SSD = (4, 8, 128, 48, 64, 128)    # B, NC, Q, H, P, N of a mamba2
+#                                         prefill (1000 tokens -> 8 chunks)
+FLASH_CASES = [(2, 128, 4, 4, 64), (1, 256, 4, 2, 128), (1, 384, 6, 1, 64),
+               (2, 100, 4, 2, 64), (1, 256, 4, 4, 80), QWEN_ATTN]
+FLASH_MASKS = [(True, 0), (True, 64), (True, 256), (False, 0)]
+SSD_CASES = [(2, 4, 64, 3, 32, 16), (1, 2, 128, 2, 64, 64),
+             (1, 8, 32, 1, 16, 8), (1, 2, 128, 2, 80, 64), MAMBA_SSD]
+REQUESTS, NEW_TOKENS, GREEDY_PROMPT = 4, 16, 64
+SERVE = {"qwen1.5-0.5b": (1024, (0, 256), "flash_attention"),
+         "mamba2-780m": (1000, (0,), "ssd_scan")}
+# kernel route against torch route at full width, relative to the
+# logits' largest magnitude.  In bf16 the routes sum attention / the scan
+# in another order before the bf16 cast, and 24-48 layers of random
+# weights carry the flipped roundings to the logits (measured: 1.1 %
+# qwen, 4.5 % mamba2, NVIDIA H100 80GB HBM3, 700 W); in float32 only
+# float32 roundings differ
+LOGIT_TOL = {torch.bfloat16: 0.15, torch.float32: 1e-3}
+REPLAY_TOL = 1e-3       # smoke size, float32: prefill vs decode replay
+
+
+def flash_inputs(b, s, h, kh, d, dtype, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return tuple(torch.randn(shape, device="cuda", generator=g).to(dtype)
+                 for shape in ((b, s, h, d), (b, s, kh, d), (b, s, kh, d)))
+
+
+def ssd_inputs(b, nc, q, h, p, n, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    xs = torch.randn((b, nc, q, h, p), device="cuda", generator=g)
+    a = -torch.randn((b, nc, q, h), device="cuda", generator=g).abs() * 0.1
+    bm = torch.randn((b, nc, q, n), device="cuda", generator=g)
+    cm = torch.randn((b, nc, q, n), device="cuda", generator=g)
+    return xs, a, bm, cm
+
+
+def check_flash() -> float:
+    worst = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        rtol, atol = FLASH_TOL[dtype]
+        for i, shape in enumerate(FLASH_CASES):
+            q, k, v = flash_inputs(*shape, dtype, seed=200 + i)
+            for causal, window in FLASH_MASKS:
+                out = ops.flash_attention(q, k, v, causal=causal,
+                                          window=window)
+                torch.cuda.synchronize()
+                plain = ref.flash_attention(q, k, v, causal=causal,
+                                            window=window)
+                torch.testing.assert_close(out.float(), plain.float(),
+                                           rtol=rtol, atol=atol)
+                err = float((out.float() - plain.float()).abs().max())
+                worst = max(worst, err)
+                log(f"check flash_attention {str(dtype)[6:]} {shape} "
+                    f"causal={causal} window={window}: max |kernel - "
+                    f"plain| = {err!r}")
+            del q, k, v
+    torch.cuda.empty_cache()
+    return worst
+
+
+def check_ssd() -> float:
+    worst = 0.0
+    for i, shape in enumerate(SSD_CASES):
+        args = ssd_inputs(*shape, seed=300 + i)
+        y, st = ops.ssd_scan(*args)
+        torch.cuda.synchronize()
+        y_p, s_p = ref.ssd_scan(*args)
+        torch.testing.assert_close(y, y_p, rtol=SSD_TOL, atol=SSD_TOL)
+        torch.testing.assert_close(st, s_p, rtol=SSD_TOL, atol=SSD_TOL)
+        err = max(float((y - y_p).abs().max()),
+                  float((st - s_p).abs().max()))
+        worst = max(worst, err)
+        log(f"check ssd_scan {shape}: max |kernel - plain| = {err!r} "
+            f"(max |y| {float(y_p.abs().max())!r})")
+        del args, y, st, y_p, s_p
+    torch.cuda.empty_cache()
+    return worst
+
+
+def time_flash(card: str) -> dict:
+    """K3 at qwen1.5-0.5b's prefill shape, bf16, causal.  Bound: q, k, v
+    read and out written once; 4 D flops per unmasked (query, key) pair
+    (q.k and p.v) at the bf16 tensor-core rate."""
+    b, s, h, kh, d = QWEN_ATTN
+    q, k, v = flash_inputs(*QWEN_ATTN, torch.bfloat16, seed=9)
+    nbytes = 2 * (2 * b * s * h * d + 2 * b * s * kh * d)
+    flops = 4 * d * b * h * (s * (s + 1) // 2)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))   # (B, H, S, D)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    res = {"ms": device_ms(lambda: ops.flash_attention(q, k, v), 20),
+           "plain_ms": device_ms(lambda: ref.flash_attention(q, k, v), 5),
+           # the nearest single PyTorch call; timed here, never used
+           "library_ms": device_ms(lambda: sdpa(qt, kt, vt, is_causal=True),
+                                   20),
+           **bound(nbytes, flops, BF16_FLOPS)}
+    call_ms = median_ms(lambda: ops.flash_attention(q, k, v), 20)
+    log(f"timing flash_attention {QWEN_ATTN} bf16 causal on {card}: kernel "
+        f"{res['ms']!r} ms (one call with its dispatch {call_ms!r} ms), "
+        f"bound {res['bound_ms']!r} ms ({res['bound_by']}, {nbytes} B, "
+        f"{flops} flop), plain {res['plain_ms']!r} ms, library (sdpa) "
+        f"{res['library_ms']!r} ms")
+    del q, k, v
+    torch.cuda.empty_cache()
+    return res
+
+
+def time_ssd(card: str) -> dict:
+    """K4 at mamba2-780m's prefill shape.  Bound: inputs read and outputs
+    written once; float32 work as this data needs it — C Bᵀ over the
+    causal triangle once per (batch, chunk) (it does not depend on the
+    head), and per (batch, head, chunk) the triangle of ((C Bᵀ) ∘ L) X,
+    C Sᵀ and the state update — at the float32 CUDA-core rate."""
+    b, nc, q, h, p, n = MAMBA_SSD
+    args = ssd_inputs(*MAMBA_SSD, seed=10)
+    nbytes = 4 * (2 * b * nc * q * h * p + b * nc * q * h
+                  + 2 * b * nc * q * n + b * h * p * n)
+    tri = q * (q + 1) // 2
+    flops = (b * nc * 2 * tri * n
+             + b * nc * h * (2 * tri * p + 2 * q * n * p + 2 * q * p * n
+                             + 2 * p * n))
+    res = {"ms": device_ms(lambda: ops.ssd_scan(*args), 10),
+           # the plain recurrence is ~5000 small launches: host-bound
+           "plain_ms": device_ms(lambda: ref.ssd_scan(*args), 1, rounds=3),
+           "library_ms": None,      # no single PyTorch call computes it
+           **bound(nbytes, flops, FP32_FLOPS)}
+    call_ms = median_ms(lambda: ops.ssd_scan(*args), 10)
+    log(f"timing ssd_scan {MAMBA_SSD} on {card}: kernel {res['ms']!r} ms "
+        f"(one call with its dispatch {call_ms!r} ms), bound "
+        f"{res['bound_ms']!r} ms ({res['bound_by']}, {nbytes} B, {flops} "
+        f"flop), plain {res['plain_ms']!r} ms")
+    del args
+    torch.cuda.empty_cache()
+    return res
+
+
+def compare_routes(cfg, params, batch, window: int, per_prefill: dict,
+                   label: str, card: str) -> dict:
+    """One prefill on the kernel route (launch counts zeroed before and
+    read after) and one on the torch route; last-token logits within
+    LOGIT_TOL of their largest magnitude; both routes timed.  Returns
+    the kernel route's launch counts."""
+    steps = {r: make_prefill_step(cfg, window=window, backend=r)
+             for r in ("kernel", "torch")}
+    torch.cuda.synchronize()
+    zero_launches()
+    out_k = steps["kernel"](params, batch)
+    torch.cuda.synchronize()
+    got = expect_launches(f"{label}, kernel route", per_prefill)
+    zero_launches()
+    out_t = steps["torch"](params, batch)
+    torch.cuda.synchronize()
+    expect_launches(f"{label}, torch route", {})
+    n, s = batch["tokens"].shape
+    for nm, out in (("kernel", out_k), ("torch", out_t)):
+        if out.shape != (n, 1, cfg.vocab_size) or \
+                not torch.isfinite(out).all():
+            raise AssertionError(f"{label}, {nm} route: logits "
+                                 f"{tuple(out.shape)}, finite "
+                                 f"{bool(torch.isfinite(out).all())}")
+    scale = float(out_t.float().abs().max())
+    diff = float((out_k.float() - out_t.float()).abs().max())
+    agree = float((out_k.argmax(-1) == out_t.argmax(-1)).float().mean())
+    ms = {r: median_ms(lambda: steps[r](params, batch), 3, warmup=0)
+          for r in steps}
+    log(f"{label}: last-token logits kernel vs torch route max abs diff "
+        f"{diff!r} (largest |logit| {scale!r}, {diff / scale!r} of it; "
+        f"argmax agreement {agree!r}); prefill of {n} x {s} tokens "
+        f"{ms['kernel']!r} ms (kernel route), {ms['torch']!r} ms (torch "
+        f"route) on {card}")
+    tol = LOGIT_TOL[cfg.torch_dtype]
+    if not diff <= tol * scale:
+        raise AssertionError(f"{label}: routes differ by {diff} > {tol} x "
+                             f"{scale}")
+    return got
+
+
+def serve_arch(arch: str, card: str) -> int:
+    """Phase 10 for one arch at full width.  Returns the kernel launches
+    of one kernel-route prefill (window 0)."""
+    prompt_len, windows, kernel = SERVE[arch]
+    cfg = get_config(arch)
+    per_prefill = {kernel: cfg.num_layers}
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = tr.init_params(gen, cfg)
+    prompt = torch.randint(0, cfg.vocab_size, (REQUESTS, prompt_len),
+                           generator=gen, device="cuda")
+    batch = {"tokens": prompt}
+    launches = None
+    for window in windows:
+        label = f"{arch} prefill, window {window}"
+        got = compare_routes(cfg, params, batch, window, per_prefill, label,
+                             card)
+        launches = got[kernel] if launches is None else launches
+    peak = torch.cuda.max_memory_allocated()
+    # the same prefill at full width in float32 (the config's widths and
+    # depth, float32 weights from the same seed)
+    cfg32 = cfg.replace(dtype="float32")
+    params32 = tr.init_params(torch.Generator(device="cuda").manual_seed(0),
+                              cfg32)
+    compare_routes(cfg32, params32, batch, 0, per_prefill,
+                   f"{arch} prefill in float32", card)
+    del params32
+    torch.cuda.empty_cache()
+    gp = prompt[:, :GREEDY_PROMPT]
+    zero_launches()
+    t0 = time.perf_counter()
+    toks = greedy_generate(params, cfg, gp, NEW_TOKENS)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    expect_launches(f"{arch} greedy_generate", {})
+    new = toks[:, GREEDY_PROMPT:]
+    if (toks.shape != (REQUESTS, GREEDY_PROMPT + NEW_TOKENS)
+            or not torch.equal(toks[:, :GREEDY_PROMPT], gp)
+            or int(new.min()) < 0 or int(new.max()) >= cfg.vocab_size):
+        raise AssertionError(f"{arch} greedy_generate: tokens "
+                             f"{tuple(toks.shape)} {new.tolist()}")
+    # decode rate: NEW_TOKENS steps against a replayed cache
+    cache = tr.prefill_cache(params, cfg, gp, cache_len=GREEDY_PROMPT
+                             + NEW_TOKENS + 1)
+    step = make_decode_step(cfg)
+    last = toks[:, GREEDY_PROMPT:GREEDY_PROMPT + 1]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(NEW_TOKENS):
+        logits, cache = step(params, cache, {"token": last})
+        last = torch.argmax(logits[:, -1, :], dim=-1)[:, None]
+    torch.cuda.synchronize()
+    dec_s = time.perf_counter() - t0
+    log(f"{arch} greedy_generate: {REQUESTS} x {NEW_TOKENS} new tokens after "
+        f"a {GREEDY_PROMPT}-token prompt in {gen_s!r} s (replay included); "
+        f"decode {REQUESTS * NEW_TOKENS / dec_s!r} tokens/s "
+        f"({dec_s / NEW_TOKENS * 1e3!r} ms a step) on {card}; first "
+        f"request {new[0].tolist()}")
+    log(f"{arch} peak device memory: {peak} B (bf16 prefills), "
+        f"{torch.cuda.max_memory_allocated()} B (the float32 prefill "
+        "included)")
+    del params, cache
+    torch.cuda.empty_cache()
+    return launches
+
+
+def check_replay_smoke() -> None:
+    """Smoke size, float32, on the card: the kernel route's prefill
+    logits == a decode replay (``prefill_cache`` + ``decode_step``)."""
+    for arch in SERVE:
+        cfg = get_config(arch, smoke=True)
+        gen = torch.Generator(device="cuda").manual_seed(1)
+        params = tr.init_params(gen, cfg)
+        toks = torch.randint(0, cfg.vocab_size, (2, 12), generator=gen,
+                             device="cuda")
+        zero_launches()
+        last = make_prefill_step(cfg)(params, {"tokens": toks})
+        torch.cuda.synchronize()
+        if ops.LAUNCHES[SERVE[arch][2]] != cfg.num_layers:
+            raise AssertionError(f"{arch} smoke prefill: {ops.LAUNCHES}")
+        cache = tr.prefill_cache(params, cfg, toks[:, :-1], cache_len=12)
+        dec, _ = tr.decode_step(params, cfg, toks[:, -1:], cache)
+        diff = float((last - dec).abs().max())
+        log(f"{arch} smoke size, float32: prefill vs decode replay max abs "
+            f"diff {diff!r}")
+        if not diff <= REPLAY_TOL:
+            raise AssertionError(f"{arch} smoke: prefill vs replay {diff}")
+
+
 def main() -> int:
     # 1. device
     if not torch.cuda.is_available():
@@ -371,7 +679,8 @@ def main() -> int:
 
     # 2. build
     t0 = time.perf_counter()
-    logs = build.build(["fill_aggregate", "quantize_int8"])
+    logs = build.build(["fill_aggregate", "quantize_int8", "flash_attention",
+                        "ssd_scan"])
     log(f"build: {time.perf_counter() - t0:.2f} s")
     for name, text in logs.items():
         for line in text.splitlines():
@@ -492,6 +801,19 @@ def main() -> int:
     check_run(offline, "OfflineNas")
     log(f"OfflineNas objectives {offline.reports[0].objs.tolist()}, "
         f"round_s {offline.reports[0].round_s!r}")
+    del offline
+    torch.cuda.empty_cache()
+
+    # 9. K3 and K4 against their plain versions, then timed
+    flash_err = check_flash()
+    ssd_err = check_ssd()
+    flash_timing = time_flash(card)
+    ssd_timing = time_ssd(card)
+
+    # 10. the serving path at full width, then the smoke-size replay check
+    with torch.inference_mode():
+        serve_launches = {arch: serve_arch(arch, card) for arch in SERVE}
+        check_replay_smoke()
 
     kernels = [{
         "name": "fill_aggregate", "route": "cuda",
@@ -511,6 +833,18 @@ def main() -> int:
         "replaces": "src/repro/kernels/quantize.py:61",
         "launches": codec_launches["dequantize_int8"], "max_abs_err": err_d,
         **int8_timing["dequantize_int8"],
+    }, {
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:86",
+        "launches": serve_launches["qwen1.5-0.5b"], "max_abs_err": flash_err,
+        **flash_timing,
+    }, {
+        "name": "ssd_scan", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
+        "replaces": "src/repro/kernels/ssd_scan.py:66",
+        "launches": serve_launches["mamba2-780m"], "max_abs_err": ssd_err,
+        **ssd_timing,
     }]
     if any(not math.isfinite(k[f]) for k in kernels
            for f in ("ms", "plain_ms", "bound_ms")):

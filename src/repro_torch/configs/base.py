@@ -2,8 +2,9 @@
 
 ``ModelConfig`` carries the same fields as the JAX package's, so a
 configuration reads the same in both; ``torch_dtype`` takes the place of
-``jdtype``.  Only the paper's CIFAR supernet is ported so far: any other
-architecture name raises.
+``jdtype``.  Ported so far: the paper's CIFAR supernet and the two
+language models the serving path runs at full width (``qwen1.5-0.5b``,
+dense; ``mamba2-780m``, SSM).  Any other architecture name raises.
 """
 from __future__ import annotations
 
@@ -82,6 +83,8 @@ class ModelConfig:
 # CLI ids -> module names of the architectures ported so far
 ARCH_ALIASES = {
     "cifar-supernet": "cifar_supernet",
+    "qwen1.5-0.5b": "qwen1p5_0p5b",
+    "mamba2-780m": "mamba2_780m",
 }
 
 
@@ -91,7 +94,7 @@ def get_config(arch: str, smoke: bool = False) -> ModelConfig:
     if mod_name is None:
         raise ValueError(
             f"architecture {arch!r} is not yet ported to repro_torch "
-            f"(ported: {sorted(ARCH_ALIASES)}; the LM/MoE/SSM configs "
-            "follow, ROADMAP queue 1: LM/MoE/SSM supernet path)")
+            f"(ported: {sorted(ARCH_ALIASES)}; the hybrid, MoE, VLM and "
+            "audio families follow, ROADMAP queue 1)")
     mod = importlib.import_module(f"repro_torch.configs.{mod_name}")
     return mod.smoke_config() if smoke else mod.config()

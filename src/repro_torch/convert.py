@@ -1,4 +1,6 @@
-"""Carry CIFAR CNN weights between the JAX package's layout and the port's.
+"""Carry weights between the JAX package's layouts and the port's.
+
+CIFAR CNN (``params_from_reference`` / ``params_to_reference``):
 
 The JAX package nests its parameters as ``{"stem", "fc": {"w", "b"},
 "blocks": [{branch: {leaf: array}}]}`` with HWIO convolutions
@@ -8,6 +10,14 @@ under ``state_dict`` names with OIHW convolutions (depthwise
 placeholder leaf carries over.  Leaves are matched by path, never by
 position; the port's order is the module's (leaves of a branch, and
 ``fc.b`` before ``fc.w``, in name order).
+
+Language models (``lm_params_from_reference`` / ``lm_params_to_reference``):
+the JAX package stacks every per-layer leaf on a leading ``L`` axis
+(``params["layers"][...]`` of shape ``(L, ...)``); the port keeps a list
+of ``L`` per-layer dicts with the same names and the same per-layer
+layouts (dense ``w`` is ``(d_in, d_out)`` in both).  Leaves are matched
+by path.  bfloat16 leaves cross as float32 numpy arrays holding the same
+values (numpy has no bfloat16); both directions are exact.
 """
 from __future__ import annotations
 
@@ -16,6 +26,7 @@ from typing import Dict
 import numpy as np
 import torch
 
+from repro_torch.configs.base import ModelConfig
 from repro_torch.models.cnn import BRANCH_NAMES
 
 _HWIO_TO_OIHW = (3, 2, 0, 1)
@@ -65,3 +76,83 @@ def params_to_reference(params: Dict[str, torch.Tensor]):
                 tree["blocks"].append({b: {} for b in BRANCH_NAMES})
             tree["blocks"][i][nm][leaf] = _to_ref(t)
     return tree
+
+
+def _lm_family_check(cfg: ModelConfig) -> None:
+    if cfg.family not in ("dense", "ssm") or cfg.supernet:
+        raise NotImplementedError(
+            f"{cfg.name}: only the dense and ssm families without the "
+            "supernet are ported (ROADMAP queue 1)")
+
+
+def _leaf_to_port(a, dtype: torch.dtype) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":       # numpy's extension type
+        a = a.astype(np.float32)
+    return torch.tensor(a).to(dtype)
+
+
+def _tree_to_port(tree, dtype_of):
+    if isinstance(tree, dict):
+        return {k: _tree_to_port(v, dtype_of) for k, v in tree.items()}
+    return _leaf_to_port(tree, dtype_of(tree))
+
+
+def lm_params_from_reference(cfg: ModelConfig, tree) -> Dict:
+    """The JAX package's LM parameter tree (leaves as numpy arrays,
+    per-layer leaves stacked on ``L``) -> the port's nested dicts on the
+    CPU, ``layers`` a list of ``L`` dicts.  float32 leaves stay float32;
+    the others take the config's dtype."""
+    _lm_family_check(cfg)
+
+    def dtype_of(a):
+        return (torch.float32 if np.asarray(a).dtype == np.float32
+                else cfg.torch_dtype)
+
+    out = {k: _tree_to_port(v, dtype_of) for k, v in tree.items()
+           if k != "layers"}
+
+    def unstack(node, i):
+        if isinstance(node, dict):
+            return {k: unstack(v, i) for k, v in node.items()}
+        a = np.asarray(node)
+        if a.shape[0] != cfg.num_layers:
+            raise ValueError(f"layer leaf of shape {a.shape}: expected a "
+                             f"leading axis of {cfg.num_layers}")
+        return _leaf_to_port(a[i], dtype_of(a))
+
+    out["layers"] = [unstack(tree["layers"], i)
+                     for i in range(cfg.num_layers)]
+    return out
+
+
+def lm_params_to_reference(cfg: ModelConfig, params: Dict):
+    """Inverse of ``lm_params_from_reference``: numpy arrays in the JAX
+    package's nesting, per-layer leaves stacked on ``L`` (bfloat16
+    leaves as float32 arrays of the same values)."""
+    _lm_family_check(cfg)
+
+    def leaf(t: torch.Tensor) -> np.ndarray:
+        t = t.detach().cpu()
+        if t.dtype == torch.bfloat16:
+            t = t.float()
+        return t.numpy()
+
+    def tree(node):
+        if isinstance(node, dict):
+            return {k: tree(v) for k, v in node.items()}
+        return leaf(node)
+
+    out = {k: tree(v) for k, v in params.items() if k != "layers"}
+    layers = params["layers"]
+    if len(layers) != cfg.num_layers:
+        raise ValueError(f"{len(layers)} layers, config has "
+                         f"{cfg.num_layers}")
+
+    def stack(nodes):
+        if isinstance(nodes[0], dict):
+            return {k: stack([n[k] for n in nodes]) for k in nodes[0]}
+        return np.stack([leaf(n) for n in nodes])
+
+    out["layers"] = stack(layers)
+    return out

@@ -13,7 +13,19 @@ import torch
 from repro_torch.kernels import ref
 
 LAUNCHES = {"fill_aggregate": 0, "quantize_int8": 0,
-            "dequantize_int8": 0}
+            "dequantize_int8": 0, "flash_attention": 0, "ssd_scan": 0}
+# the routes of the language models' attention and SSD scan: the kernel
+# (its plain version on the CPU) or the plain einsum path
+BACKENDS = ("kernel", "torch")
+
+
+def check_backend(backend: str) -> None:
+    """Raise on a route name the port does not take (the JAX package's
+    ``"xla"``/``"pallas"`` are ``"torch"``/``"kernel"`` here; its
+    ``"chunked"`` attention waits for a later slice, ROADMAP queue 1)."""
+    if backend not in BACKENDS:
+        raise ValueError(f"unknown backend {backend!r}: the port takes "
+                         f"{list(BACKENDS)}")
 
 
 def _common_device(name: str, *tensors: torch.Tensor) -> torch.device:
@@ -97,3 +109,88 @@ def dequantize_int8(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     out = _q.dequantize(q, scale)
     LAUNCHES["dequantize_int8"] += 1
     return out
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int = 0) -> torch.Tensor:
+    """q: (B, S, H, D); k, v: (B, S, Kh, D), one dtype (float32 or
+    bfloat16), contiguous -> (B, S, H, D) in q's dtype (kernel K3).
+
+    Takes what the TPU kernel takes: ``H % Kh == 0``, D <= 256, and S up
+    to 128 or a multiple of 128."""
+    _common_device("flash_attention", q, k, v)
+    if q.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError("flash_attention: q must be float32 or bfloat16, "
+                        f"got {q.dtype}")
+    for nm, t in (("q", q), ("k", k), ("v", v)):
+        if t.dtype != q.dtype:
+            raise TypeError(f"flash_attention: {nm} is {t.dtype}, q is "
+                            f"{q.dtype}")
+        if t.dim() != 4:
+            raise ValueError(f"flash_attention: {nm} must be (B, S, heads, "
+                             f"D), got shape {tuple(t.shape)}")
+        if not t.is_contiguous():
+            raise ValueError(f"flash_attention: {nm} must be contiguous")
+    b, s, h, d = q.shape
+    kh = k.shape[2]
+    if (v.shape != k.shape or k.shape[0] != b or k.shape[1] != s
+            or k.shape[3] != d):
+        raise ValueError("flash_attention: shape mismatch: q "
+                         f"{tuple(q.shape)}, k {tuple(k.shape)}, v "
+                         f"{tuple(v.shape)}")
+    if min(b, s, h, kh, d) < 1 or h % kh:
+        raise ValueError(f"flash_attention: need H % Kh == 0 and no empty "
+                         f"axis, got H={h}, Kh={kh}, shape {tuple(q.shape)}")
+    if d > 256:
+        raise ValueError(f"flash_attention: head dim {d} > 256")
+    if s % min(128, s):
+        raise ValueError(f"flash_attention: sequence length {s} is neither "
+                         "<= 128 nor a multiple of 128")
+    if window < 0:
+        raise ValueError(f"flash_attention: window {window} < 0")
+    if q.device.type == "cpu":
+        return ref.flash_attention(q, k, v, causal=causal, window=window)
+    from repro_torch.kernels import flash_attention as _fl
+    out = _fl.launch(q, k, v, causal=causal, window=window)
+    LAUNCHES["flash_attention"] += 1
+    return out
+
+
+def ssd_scan(xs: torch.Tensor, a: torch.Tensor, bm: torch.Tensor,
+             cm: torch.Tensor, initial_state=None):
+    """xs: (B, NC, Q, H, P); a: (B, NC, Q, H); bm, cm: (B, NC, Q, N); all
+    float32, contiguous -> (y (B, NC, Q, H, P), final state (B, H, P,
+    N)), float32 (kernel K4).  The state starts at zero: a non-None
+    ``initial_state`` raises, as the TPU kernel asserts.  Q and N are at
+    most 128."""
+    if initial_state is not None:
+        raise ValueError("ssd_scan: the kernel starts from a zero state; "
+                         "initial_state must be None")
+    _common_device("ssd_scan", xs, a, bm, cm)
+    for nm, t in (("xs", xs), ("a", a), ("bm", bm), ("cm", cm)):
+        if t.dtype != torch.float32:
+            raise TypeError(f"ssd_scan: {nm} must be float32, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"ssd_scan: {nm} must be contiguous")
+    if xs.dim() != 5:
+        raise ValueError("ssd_scan: xs must be (B, NC, Q, H, P), got shape "
+                         f"{tuple(xs.shape)}")
+    b, nc, q, h, p = xs.shape
+    n = bm.shape[-1] if bm.dim() == 4 else -1
+    if (a.shape != (b, nc, q, h) or bm.shape != (b, nc, q, n)
+            or cm.shape != bm.shape):
+        raise ValueError(f"ssd_scan: shape mismatch: xs {tuple(xs.shape)}, "
+                         f"a {tuple(a.shape)}, bm {tuple(bm.shape)}, cm "
+                         f"{tuple(cm.shape)}")
+    if min(b, nc, q, h, p, n) < 1:
+        raise ValueError(f"ssd_scan: empty axis in xs {tuple(xs.shape)}, "
+                         f"bm {tuple(bm.shape)}")
+    from repro_torch.kernels import ssd_scan as _ssd
+    if q > _ssd.MAX_CHUNK or n > _ssd.MAX_STATE:
+        raise ValueError(f"ssd_scan: chunk length {q} or state size {n} "
+                         f"above the kernel's {_ssd.MAX_CHUNK}")
+    if xs.device.type == "cpu":
+        return ref.ssd_scan(xs, a, bm, cm)
+    y, state = _ssd.launch(xs, a, bm, cm)
+    LAUNCHES["ssd_scan"] += 1
+    return y, state

@@ -7,6 +7,8 @@ CUDA kernels against them on the card.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 
 
@@ -34,3 +36,52 @@ def dequantize_int8(q, scale):
     """q: (P,) int8; scale: 0-d or (1,) float32 -> (P,) float32
     (``q * scale``)."""
     return q.float() * scale
+
+
+def flash_attention(q, k, v, *, causal=True, window=0):
+    """q: (B, S, H, D); k, v: (B, S, Kh, D) -> (B, S, H, D) in q's dtype:
+    softmax(q kᵀ / √D) v in float32, K/V repeated to the H query heads,
+    keys masked to ``k <= q`` (causal) and ``k > q - window`` (window),
+    masked scores set to -1e30."""
+    b, s, h, d = q.shape
+    kh = k.shape[2]
+    if kh != h:
+        k = torch.repeat_interleave(k, h // kh, dim=2)
+        v = torch.repeat_interleave(v, h // kh, dim=2)
+    scores = torch.einsum("bshd,bthd->bhst", q.float(),
+                          k.float()) / math.sqrt(d)
+    qi = torch.arange(s, device=q.device)[:, None]
+    ki = torch.arange(s, device=q.device)[None, :]
+    mask = torch.ones((s, s), dtype=torch.bool, device=q.device)
+    if causal:
+        mask = mask & (ki <= qi)
+    if window:
+        mask = mask & (ki > qi - window)
+    scores = torch.where(mask, scores, torch.full_like(scores, -1e30))
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bhst,bthd->bshd", probs, v.float())
+    return out.to(q.dtype)
+
+
+def ssd_scan(xs, a, bm, cm):
+    """The sequential (non-chunked) SSD recurrence, the ground truth.
+
+    xs: (B, NC, Q, H, P) inputs pre-scaled by dt; a: (B, NC, Q, H)
+    log-decay; bm, cm: (B, NC, Q, N).  Per step t, from a zero state,
+    ``S = S * exp(a_t) + x_t ⊗ b_t`` and ``y_t = S · c_t``.  Returns
+    (y (B, NC, Q, H, P), final state (B, H, P, N)), both float32.
+    """
+    b, nc, q, h, p = xs.shape
+    n = bm.shape[-1]
+    x_f = xs.reshape(b, nc * q, h, p).float()
+    a_f = a.reshape(b, nc * q, h).float()
+    b_f = bm.reshape(b, nc * q, n).float()
+    c_f = cm.reshape(b, nc * q, n).float()
+    state = torch.zeros((b, h, p, n), dtype=torch.float32, device=xs.device)
+    ys = []
+    for t in range(nc * q):
+        state = (state * torch.exp(a_f[:, t])[:, :, None, None]
+                 + torch.einsum("bhp,bn->bhpn", x_f[:, t], b_f[:, t]))
+        ys.append(torch.einsum("bn,bhpn->bhp", c_f[:, t], state))
+    y = torch.stack(ys, dim=1).reshape(b, nc, q, h, p)
+    return y, state

@@ -1,0 +1,100 @@
+"""Serving steps: prefill (a full-sequence forward that yields the next
+token's logits) and single-token decode against the KV/SSM cache, plus a
+batched greedy generation driver.
+
+    python -m repro_torch.launch.serve --arch qwen1.5-0.5b             # card
+    python -m repro_torch.launch.serve --arch mamba2-780m --device cpu # CPU
+
+On the card the config runs at full width in its dtype; on the CPU
+(``--device cpu``) at its smoke size.  Weights are random, from a seeded
+``torch.Generator``.
+"""
+from __future__ import annotations
+
+import argparse
+import time
+from typing import Callable
+
+import torch
+
+from repro_torch.configs import ModelConfig, get_config
+from repro_torch.models import transformer as tr
+from repro_torch.models.layers import unembed
+
+
+def make_prefill_step(cfg: ModelConfig, *, window: int = 0,
+                      backend: str = "kernel") -> Callable:
+    """``prefill_step(params, batch)`` -> the last position's logits
+    (B, 1, V) for ``batch["tokens"]`` (B, S).  Only that position is
+    unembedded (the logits of the others are never read)."""
+    def prefill_step(params, batch):
+        h = tr.forward(params, cfg, batch["tokens"], window=window,
+                       backend=backend, return_hidden=True)
+        return unembed(params["embed"], h[:, -1:, :])
+    return prefill_step
+
+
+def make_decode_step(cfg: ModelConfig, *, window: int = 0) -> Callable:
+    """``decode_step(params, cache, batch)`` -> (logits (B, 1, V), cache)
+    for ``batch["token"]`` (B, 1); the cache is updated in place."""
+    def decode_step(params, cache, batch):
+        return tr.decode_step(params, cfg, batch["token"], cache,
+                              window=window)
+    return decode_step
+
+
+def greedy_generate(params, cfg: ModelConfig, prompt: torch.Tensor,
+                    steps: int, cache_len: int = 0,
+                    window: int = 0) -> torch.Tensor:
+    """Batched greedy decoding: (B, S) prompt -> (B, S + steps) tokens.
+    The cache is built by replaying all but the last prompt token; the
+    last one is decoded, so its logits pick the first new token."""
+    b, s = prompt.shape
+    cache = tr.prefill_cache(params, cfg, prompt[:, :-1], window=window,
+                             cache_len=cache_len or (s + steps))
+    step = make_decode_step(cfg, window=window)
+    last = prompt[:, -1:]
+    out = [prompt]
+    for _ in range(steps):
+        logits, cache = step(params, cache, {"token": last})
+        last = torch.argmax(logits[:, -1, :], dim=-1)[:, None].to(
+            prompt.dtype)
+        out.append(last)
+    return torch.cat(out, dim=1)
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser(description="greedy serving driver")
+    ap.add_argument("--arch", default="qwen1.5-0.5b")
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=16)
+    ap.add_argument("--steps", type=int, default=16)
+    ap.add_argument("--window", type=int, default=0)
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (full width) or cpu (smoke size)")
+    args = ap.parse_args(argv)
+
+    device = torch.device(args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("--device cuda but no CUDA device is available; "
+                           "pass --device cpu to run the smoke size on the "
+                           "CPU")
+    cfg = get_config(args.arch, smoke=device.type == "cpu")
+    gen = torch.Generator(device=device).manual_seed(0)
+    with torch.inference_mode():
+        params = tr.init_params(gen, cfg)
+        prompt = torch.randint(0, cfg.vocab_size,
+                               (args.batch, args.prompt_len),
+                               generator=gen, device=device)
+        t0 = time.perf_counter()
+        toks = greedy_generate(params, cfg, prompt, args.steps,
+                               window=args.window)
+        toks = toks.cpu()
+    print(f"{cfg.name} ({cfg.d_model} wide, {cfg.num_layers} layers, "
+          f"{cfg.dtype}) on {device}: generated {tuple(toks.shape)} tokens "
+          f"in {time.perf_counter() - t0:.3f} s")
+    print(toks[0].tolist())
+
+
+if __name__ == "__main__":
+    main()

@@ -1,3 +1,3 @@
-from repro_torch.models import cnn
+from repro_torch.models import attention, cnn, layers, ssm, transformer
 
-__all__ = ["cnn"]
+__all__ = ["attention", "cnn", "layers", "ssm", "transformer"]

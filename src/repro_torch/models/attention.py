@@ -1,0 +1,129 @@
+"""Grouped-query self-attention of the dense language models.
+
+Supports GQA (num_kv_heads <= num_heads), RoPE 1d / 2d / none, optional
+QKV bias, causal or sliding-window masks, and single-token decode against
+a (ring-buffered) KV cache, with the JAX package's names and layouts.
+
+The softmax(QKᵀ)V core of a full sequence takes one of two routes:
+``backend="kernel"`` (the default) is ``kernels.ops.flash_attention``
+(kernel K3 on a CUDA tensor, its plain version on the CPU) and
+``backend="torch"`` is the einsum path ``_attend`` (the JAX package's
+``"xla"``).  Decode always takes ``_attend``, as in the JAX package.
+"""
+from __future__ import annotations
+
+import math
+from typing import Dict, Tuple
+
+import torch
+
+from repro_torch.kernels import ops as kops
+from repro_torch.models.layers import apply_rope, dense, dense_init
+
+NEG_INF = -1e30
+
+
+def attention_init(gen, d_model, num_heads, num_kv_heads, head_dim, dtype,
+                   qkv_bias=False):
+    return {
+        "wq": dense_init(gen, d_model, num_heads * head_dim, dtype, qkv_bias),
+        "wk": dense_init(gen, d_model, num_kv_heads * head_dim, dtype,
+                         qkv_bias),
+        "wv": dense_init(gen, d_model, num_kv_heads * head_dim, dtype,
+                         qkv_bias),
+        "wo": dense_init(gen, num_heads * head_dim, d_model, dtype),
+    }
+
+
+def _split_heads(x: torch.Tensor, n: int) -> torch.Tensor:
+    b, s, _ = x.shape
+    return x.reshape(b, s, n, -1)
+
+
+def _attend(q, k, v, mask):
+    """q: (B, S, H, D); k, v: (B, T, Kh, D); mask: (B|1, S, T) bool ->
+    (B, S, H*D) in v's dtype.  Scores, softmax and the weighted sum in
+    float32; K/V repeated to the H query heads."""
+    b, s, h, d = q.shape
+    kh = k.shape[2]
+    if kh != h:
+        k = torch.repeat_interleave(k, h // kh, dim=2)
+        v = torch.repeat_interleave(v, h // kh, dim=2)
+    scores = torch.einsum("bshd,bthd->bhst", q.float(),
+                          k.float()) / math.sqrt(d)
+    scores = torch.where(mask[:, None, :, :], scores,
+                         torch.full_like(scores, NEG_INF))
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bhst,bthd->bshd", probs, v.float())
+    return out.reshape(b, s, h * d).to(v.dtype)
+
+
+def causal_mask(s: int, window: int = 0, device=None) -> torch.Tensor:
+    """(1, S, S) bool: key j visible from query i when j <= i (and
+    j > i - window)."""
+    qi = torch.arange(s, device=device)[:, None]
+    ki = torch.arange(s, device=device)[None, :]
+    m = ki <= qi
+    if window:
+        m = m & (ki > qi - window)
+    return m[None]
+
+
+def self_attention(p, x, positions, *, num_heads, num_kv_heads, head_dim,
+                   rope_style="1d", theta=10000.0, window=0,
+                   backend="kernel"):
+    """Full-sequence causal self attention (prefill).  x: (B, S, d)."""
+    kops.check_backend(backend)
+    q = _split_heads(dense(p["wq"], x), num_heads)
+    k = _split_heads(dense(p["wk"], x), num_kv_heads)
+    v = _split_heads(dense(p["wv"], x), num_kv_heads)
+    q = apply_rope(q, positions, theta, rope_style)
+    k = apply_rope(k, positions, theta, rope_style)
+    b, s = x.shape[:2]
+    if backend == "kernel":
+        out = kops.flash_attention(q, k, v, causal=True, window=window)
+        out = out.reshape(b, s, num_heads * head_dim)
+    else:
+        out = _attend(q, k, v, causal_mask(s, window=window,
+                                           device=x.device))
+    return dense(p["wo"], out)
+
+
+def init_cache(batch, num_kv_heads, head_dim, cache_len, dtype,
+               device) -> Dict[str, torch.Tensor]:
+    """KV cache of one layer.  ``pos`` holds the absolute position stored
+    in each slot (-1 = empty), so the same code serves a full cache and a
+    sliding-window ring buffer."""
+    return {
+        "k": torch.zeros((batch, cache_len, num_kv_heads, head_dim),
+                         dtype=dtype, device=device),
+        "v": torch.zeros((batch, cache_len, num_kv_heads, head_dim),
+                         dtype=dtype, device=device),
+        "pos": torch.full((cache_len,), -1, dtype=torch.int32,
+                          device=device),
+    }
+
+
+def decode_self_attention(p, x, cache, t: int, *, num_heads, num_kv_heads,
+                          head_dim, rope_style="1d", theta=10000.0, window=0
+                          ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """One-token decode.  x: (B, 1, d); t: the absolute position (a host
+    int).  Writes slot ``t % cache_len`` (a ring buffer when cache_len is
+    below the sequence length) of ``cache`` in place, where the JAX
+    package returns an updated copy, and returns it."""
+    q = _split_heads(dense(p["wq"], x), num_heads)
+    k = _split_heads(dense(p["wk"], x), num_kv_heads)
+    v = _split_heads(dense(p["wv"], x), num_kv_heads)
+    pos = torch.full((x.shape[0], 1), t, dtype=torch.int32, device=x.device)
+    q = apply_rope(q, pos, theta, rope_style)
+    k = apply_rope(k, pos, theta, rope_style)
+    slot = t % cache["k"].shape[1]
+    cache["k"][:, slot] = k[:, 0]
+    cache["v"][:, slot] = v[:, 0]
+    cache["pos"][slot] = t
+    cpos = cache["pos"]
+    valid = (cpos >= 0) & (cpos <= t)
+    if window:
+        valid = valid & (cpos > t - window)
+    out = _attend(q, cache["k"], cache["v"], valid[None, None, :])
+    return dense(p["wo"], out), cache

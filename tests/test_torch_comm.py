@@ -404,5 +404,6 @@ def test_int8_routes_agree_and_cpu_runs_launch_no_kernel(rt_runs):
     a = rt_runs["int8"][1].extras["final_master"]
     b = rt_runs["int8:torch"][1].extras["final_master"]
     assert all(torch.equal(a[k], b[k]) for k in a)
-    assert ops.LAUNCHES == {"fill_aggregate": 0, "quantize_int8": 0,
-                            "dequantize_int8": 0}
+    assert set(ops.LAUNCHES) >= {"fill_aggregate", "quantize_int8",
+                                 "dequantize_int8"}
+    assert all(n == 0 for n in ops.LAUNCHES.values())

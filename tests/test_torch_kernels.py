@@ -1,13 +1,19 @@
-"""repro_torch kernels: fill-aggregation's plain version and both
-Algorithm 3 routes against the JAX package, the wrappers' checks, and —
-on a CUDA card only — the hand-written kernels (fill-aggregation, int8
-quantize and dequantize) against their plain versions.
+"""repro_torch kernels: the plain versions of fill-aggregation, flash
+attention and the SSD chunk scan against the JAX package (its pure-jnp
+oracles and its Pallas kernels in interpret mode), both Algorithm 3
+routes, the wrappers' checks, and — on a CUDA card only — the
+hand-written kernels (fill-aggregation, int8 quantize and dequantize,
+flash attention, SSD chunk scan) against their plain versions.
 
 Tolerances: float32 sums of at most 8 terms taken in another order, so
 1e-6 (rtol and atol) for the flat function; the tree routes add the
 float32 rounding of ``w / total`` and are held at 1e-6 too.  The int8
 kernels are held bit for bit (tests/test_torch_comm.py holds the plain
-versions bit for bit against the JAX package).
+versions bit for bit against the JAX package).  Flash attention and the
+SSD scan take the JAX package's own kernel tolerances
+(tests/test_kernels.py): rtol 2e-5 / atol 1e-4 in float32 and rtol 2e-2
+/ atol 1e-1 in bfloat16 (one bf16 rounding of the output can flip), and
+rtol = atol = 2e-4 for the scan (chunked against sequential sums).
 """
 import pytest
 
@@ -21,6 +27,17 @@ import numpy as np  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 
 TOL = 1e-6
+FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}    # atol: 5x
+# the CUDA kernel against its plain version, (rtol, atol): both compute in
+# float32 and round the output once, so in bfloat16 they differ by at most
+# one rounding of the output (2^-7 of its magnitude)
+KERNEL_FLASH_TOL = {"float32": (2e-5, 1e-4), "bfloat16": (2 ** -7, 1e-3)}
+SSD_TOL = 2e-4
+FLASH_SHAPES = [(2, 128, 4, 4, 64), (1, 256, 4, 2, 128),
+                (1, 384, 6, 1, 64)]               # MQA, S = 3 x 128
+MASKS = [(True, 0), (True, 64), (False, 0)]
+SSD_SHAPES = [(2, 4, 64, 3, 32, 16), (1, 2, 128, 2, 64, 64),
+              (1, 8, 32, 1, 16, 8)]
 
 
 def rand_inputs(m, p, seed=0):
@@ -54,6 +71,130 @@ def test_plain_fill_aggregate_matches_reference(jax_ref, m, p):
     # the Pallas kernel, run in interpret mode as the JAX package's tests do
     np.testing.assert_allclose(ours.numpy(), np.asarray(jops.fill_aggregate(*args)),
                                rtol=TOL, atol=TOL)
+
+
+def flash_np(b, s, h, kh, d, seed):
+    rng = np.random.default_rng(seed)
+    return (rng.normal(size=(b, s, h, d)).astype(np.float32),
+            rng.normal(size=(b, s, kh, d)).astype(np.float32),
+            rng.normal(size=(b, s, kh, d)).astype(np.float32))
+
+
+def ssd_np(b, nc, q, h, p, n, seed):
+    rng = np.random.default_rng(seed)
+    return (rng.normal(size=(b, nc, q, h, p)).astype(np.float32),
+            (-np.abs(rng.normal(size=(b, nc, q, h))) * 0.1).astype(
+                np.float32),
+            rng.normal(size=(b, nc, q, n)).astype(np.float32),
+            rng.normal(size=(b, nc, q, n)).astype(np.float32))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,s,h,kh,d", FLASH_SHAPES)
+@pytest.mark.parametrize("causal,window", MASKS)
+def test_plain_flash_attention_matches_reference(jax_ref, dtype, b, s, h,
+                                                 kh, d, causal, window):
+    _, jops, jref = jax_ref
+    import jax.numpy as jnp
+    arrs = flash_np(b, s, h, kh, d, seed=s + h + kh)
+    ours = ops.flash_attention(
+        *(torch.from_numpy(a).to(getattr(torch, dtype)) for a in arrs),
+        causal=causal, window=window)
+    assert ours.dtype == getattr(torch, dtype) and ours.shape == (b, s, h, d)
+    assert ops.LAUNCHES["flash_attention"] == 0
+    jargs = [jnp.asarray(a, getattr(jnp, dtype)) for a in arrs]
+    tol = FLASH_TOL[dtype]
+    for fn in (jref.flash_attention, jops.flash_attention):
+        exp = fn(*jargs, causal=causal, window=window)
+        np.testing.assert_allclose(ours.float().numpy(),
+                                   np.asarray(exp, np.float32),
+                                   rtol=tol, atol=5 * tol)
+
+
+@pytest.mark.parametrize("b,nc,q,h,p,n", SSD_SHAPES)
+def test_plain_ssd_scan_matches_reference(jax_ref, b, nc, q, h, p, n):
+    _, jops, jref = jax_ref
+    import jax.numpy as jnp
+    arrs = ssd_np(b, nc, q, h, p, n, seed=q + p)
+    y, st = ops.ssd_scan(*map(torch.from_numpy, arrs))
+    assert y.shape == (b, nc, q, h, p) and st.shape == (b, h, p, n)
+    assert ops.LAUNCHES["ssd_scan"] == 0
+    jargs = [jnp.asarray(a) for a in arrs]
+    for fn in (jref.ssd_scan, jops.ssd_scan):
+        y_r, s_r = fn(*jargs)
+        np.testing.assert_allclose(y.numpy(), np.asarray(y_r),
+                                   rtol=SSD_TOL, atol=SSD_TOL)
+        np.testing.assert_allclose(st.numpy(), np.asarray(s_r),
+                                   rtol=SSD_TOL, atol=SSD_TOL)
+
+
+@pytest.mark.parametrize("backend", ["torch", "kernel"])
+def test_ssd_chunked_routes_match_reference(jax_ref, backend):
+    """The model's chunked scan (``models/ssm.ssd_chunked``) on either
+    route == the JAX package's ``xla`` and ``pallas`` routes."""
+    import jax.numpy as jnp
+    from repro.models.ssm import ssd_chunked as ref_chunked
+    from repro_torch.models.ssm import ssd_chunked
+    b, s, h, p, n, chunk = 2, 256, 2, 32, 16, 64
+    rng = np.random.default_rng(7)
+    x = rng.normal(size=(b, s, h, p)).astype(np.float32)
+    dt = (np.abs(rng.normal(size=(b, s, h))) * 0.2).astype(np.float32)
+    a_head = -np.abs(rng.normal(size=(h,))).astype(np.float32)
+    bm = rng.normal(size=(b, s, n)).astype(np.float32)
+    cm = rng.normal(size=(b, s, n)).astype(np.float32)
+    y, st = ssd_chunked(*map(torch.from_numpy, (x, dt, a_head, bm, cm)),
+                        chunk=chunk, backend=backend)
+    for route in ("xla", "pallas"):
+        y_r, s_r = ref_chunked(*map(jnp.asarray, (x, dt, a_head, bm, cm)),
+                               chunk=chunk, backend=route)
+        np.testing.assert_allclose(y.numpy(), np.asarray(y_r),
+                                   rtol=SSD_TOL, atol=SSD_TOL)
+        np.testing.assert_allclose(st.numpy(), np.asarray(s_r),
+                                   rtol=SSD_TOL, atol=SSD_TOL)
+
+
+@pytest.mark.parametrize("case", ["mixed_devices", "dtype", "mixed_dtype",
+                                  "heads", "seq_len", "head_dim", "rank",
+                                  "contiguous", "shape"])
+def test_flash_wrapper_rejects_what_the_kernel_does_not_take(case):
+    q, k, v = map(torch.from_numpy, flash_np(1, 256, 4, 2, 64, seed=0))
+    args = {"mixed_devices": (q, k, v.to("meta")),
+            "dtype": (q.half(), k.half(), v.half()),
+            "mixed_dtype": (q, k.bfloat16(), v),
+            "heads": (torch.zeros(1, 256, 4, 64), torch.zeros(1, 256, 3, 64),
+                      torch.zeros(1, 256, 3, 64)),
+            "seq_len": (q[:, :200].contiguous(), k[:, :200].contiguous(),
+                        v[:, :200].contiguous()),
+            "head_dim": (torch.zeros(1, 128, 2, 264),
+                         torch.zeros(1, 128, 2, 264),
+                         torch.zeros(1, 128, 2, 264)),
+            "rank": (q[0], k[0], v[0]),
+            "contiguous": (q.transpose(1, 2).contiguous().transpose(1, 2),
+                           k, v),
+            "shape": (q, k, v[:, :, :1].contiguous())}[case]
+    with pytest.raises((TypeError, ValueError)):
+        ops.flash_attention(*args)
+    assert ops.LAUNCHES["flash_attention"] == 0
+
+
+@pytest.mark.parametrize("case", ["initial_state", "mixed_devices", "dtype",
+                                  "shape", "contiguous", "chunk", "state"])
+def test_ssd_wrapper_rejects_what_the_kernel_does_not_take(case):
+    xs, a, bm, cm = map(torch.from_numpy, ssd_np(1, 2, 64, 2, 32, 16, 0))
+    big = torch.zeros(1, 1, 256, 2, 8)
+    args = {"initial_state": (xs, a, bm, cm, torch.zeros(1, 2, 32, 16)),
+            "mixed_devices": (xs, a, bm, cm.to("meta")),
+            "dtype": (xs.double(), a, bm, cm),
+            "shape": (xs, a[..., :1].contiguous(), bm, cm),
+            "contiguous": (xs, a, bm.transpose(2, 3).contiguous()
+                           .transpose(2, 3), cm),
+            "chunk": (big, torch.zeros(1, 1, 256, 2),
+                      torch.zeros(1, 1, 256, 4), torch.zeros(1, 1, 256, 4)),
+            "state": (xs, a, torch.zeros(1, 2, 64, 256),
+                      torch.zeros(1, 2, 64, 256))}[case]
+    with pytest.raises((TypeError, ValueError)):
+        ops.ssd_scan(*args)
+    assert ops.LAUNCHES["ssd_scan"] == 0
 
 
 @pytest.fixture(scope="module")
@@ -200,3 +341,43 @@ def test_cuda_int8_kernels_match_plain_version(cuda, p):
     assert torch.equal(d.view(torch.int32),
                        ref.dequantize_int8(q, scale).view(torch.int32))
     assert int(q[-1]) == 127               # 640 clips
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,s,h,kh,d", FLASH_SHAPES + [
+    (2, 100, 4, 2, 64),          # one ragged tile
+    (1, 256, 4, 4, 80),          # zamba2's head dim
+    (1, 128, 2, 1, 256),         # the largest head dim
+    (4, 1024, 16, 16, 64)])      # qwen1.5-0.5b's prefill
+@pytest.mark.parametrize("causal,window", MASKS + [(True, 256), (False, 64)])
+def test_cuda_flash_attention_matches_plain_version(cuda, dtype, b, s, h, kh,
+                                                    d, causal, window):
+    q, k, v = (torch.from_numpy(a).to(cuda, getattr(torch, dtype))
+               for a in flash_np(b, s, h, kh, d, seed=s))
+    before = ops.LAUNCHES["flash_attention"]
+    out = ops.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["flash_attention"] == before + 1
+    assert out.dtype == q.dtype and out.shape == q.shape
+    rtol, atol = KERNEL_FLASH_TOL[dtype]
+    torch.testing.assert_close(
+        out.float(), ref.flash_attention(q, k, v, causal=causal,
+                                         window=window).float(),
+        rtol=rtol, atol=atol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,nc,q,h,p,n", SSD_SHAPES + [
+    (1, 2, 128, 2, 80, 64),      # two P tiles (zamba2's head dim)
+    (4, 8, 128, 48, 64, 128)])   # mamba2-780m's prefill
+def test_cuda_ssd_scan_matches_plain_version(cuda, b, nc, q, h, p, n):
+    args = [torch.from_numpy(a).to(cuda) for a in ssd_np(b, nc, q, h, p, n,
+                                                          seed=q)]
+    before = ops.LAUNCHES["ssd_scan"]
+    y, st = ops.ssd_scan(*args)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["ssd_scan"] == before + 1
+    y_r, s_r = ref.ssd_scan(*args)
+    torch.testing.assert_close(y, y_r, rtol=SSD_TOL, atol=SSD_TOL)
+    torch.testing.assert_close(st, s_r, rtol=SSD_TOL, atol=SSD_TOL)
