@@ -37,28 +37,43 @@ Phases, each fatal on failure:
    ``FedAvgBaseline`` on the all-residual key for 2 rounds and
    ``OfflineNas`` with population 2 for 1 generation, each with its
    launch counts zeroed before and read after;
-9. flash attention (K3) and the SSD chunk scan (K4) against their plain
-   versions on the card: K3 in float32 and bfloat16 at the shapes of the
+9. flash attention (K3), the SSD chunk scan (K4) and the grouped expert
+   GEMM (K5) against their plain versions on the card: K3 in float32 and
+   bfloat16 at the shapes of the
    JAX package's kernel sweep (GQA, MQA, S = 384), S = 100 (one ragged
    tile), head dim 80 and qwen1.5-0.5b's prefill (4, 1024, 16, 16, 64),
    each causal, with window 64 and 256, and bidirectional (rtol 2e-5 /
    atol 1e-4 in float32, 2^-7 / 1e-3 in bfloat16: one rounding of the
    output); K4 at the sweep's
    shapes, two P tiles and mamba2-780m's prefill (rtol = atol = 2e-4);
-   each timed at its serving shape beside its bound and its plain
-   version, K3 also beside ``scaled_dot_product_attention``;
+   K5 in float32 and bfloat16 at the JAX sweep's shapes, ragged C = 8,
+   100 and 1256 (F 72, D 200), granite-moe-1b-a400m's prefill (wi/wg
+   and wo) and decode shapes, after dividing by the output's largest
+   magnitude (rtol = atol = 1e-5 in float32, 2^-7 / 1e-3 in bfloat16),
+   and ``ops.expert_ffn`` (three K5 launches) against the einsum
+   ``moe.expert_ffn`` at granite's prefill shape; each timed at its
+   serving shape beside its bound and its plain version, K3 also beside
+   ``scaled_dot_product_attention`` and K5 beside ``torch.bmm``;
 10. the serving path at full width, bf16, seeded random weights on the
    card, 4 requests: for qwen1.5-0.5b (1024-token prompt; also with
-   window 256) and mamba2-780m (1000-token prompt: chunk padding),
+   window 256), mamba2-780m (1000-token prompt: chunk padding) and
+   granite-moe-1b-a400m (1024-token prompt; also with window 256),
    ``make_prefill_step`` on the kernel route (launch counts zeroed
-   before and read after: 24 of K3, or 48 of K4, per prefill) against
-   the torch route, within LOGIT_TOL of the logits' largest magnitude
-   (15 % in bf16; 0.1 % in a float32 prefill at the same widths and
-   depth);
+   before and read after: per layer one K3, one K4, or one K3 and three
+   K5) against the torch route, within LOGIT_TOL of the logits' largest
+   magnitude (15 % in bf16; 0.1 % in a float32 prefill at the same
+   widths and depth).  For granite also: every MoE layer's input from
+   the torch-route prefill through ``moe_apply`` on both routes (equal
+   routing by construction: y within the phase-9 limits times three,
+   the K5 products a layer chains; aux equal), and the number of top-k
+   decisions that differ between the two routes' prefills, summed over
+   the layers;
    ``greedy_generate`` of 16 tokens on a 64-token prompt with no kernel
    launch (decode replays, as the JAX package's ``prefill_cache``);
    prefill time, decode tokens/s and peak memory; and, at smoke size in
-   float32, prefill logits against the decode replay within 1e-3.
+   float32, prefill logits against the decode replay within 1e-3 (for
+   the MoE at a capacity that cannot drop a choice: a prefill that
+   drops differs from the replay, in the JAX package too).
 
 Prints the kernels as one JSON line, then the ``nvidia-smi`` line, then
 ``{"ok": true, "device": {...}}`` as the last line.  Exits non-zero
@@ -91,6 +106,7 @@ from repro_torch.engine import FedAvgBaseline, FedEngine, OfflineNas, \
 from repro_torch.kernels import build, ops, ref  # noqa: E402
 from repro_torch.launch.serve import greedy_generate, make_decode_step, \
     make_prefill_step  # noqa: E402
+from repro_torch.models import moe  # noqa: E402
 from repro_torch.models import transformer as tr  # noqa: E402
 
 TOL = 1e-6              # <= 8 float32 terms summed in another order, FMA
@@ -407,8 +423,11 @@ FLASH_MASKS = [(True, 0), (True, 64), (True, 256), (False, 0)]
 SSD_CASES = [(2, 4, 64, 3, 32, 16), (1, 2, 128, 2, 64, 64),
              (1, 8, 32, 1, 16, 8), (1, 2, 128, 2, 80, 64), MAMBA_SSD]
 REQUESTS, NEW_TOKENS, GREEDY_PROMPT = 4, 16, 64
-SERVE = {"qwen1.5-0.5b": (1024, (0, 256), "flash_attention"),
-         "mamba2-780m": (1000, (0,), "ssd_scan")}
+# arch -> (prompt length, windows, kernel launches per layer per prefill)
+SERVE = {"qwen1.5-0.5b": (1024, (0, 256), {"flash_attention": 1}),
+         "mamba2-780m": (1000, (0,), {"ssd_scan": 1}),
+         "granite-moe-1b-a400m": (1024, (0, 256),
+                                  {"flash_attention": 1, "expert_gemm": 3})}
 # kernel route against torch route at full width, relative to the
 # logits' largest magnitude.  In bf16 the routes sum attention / the scan
 # in another order before the bf16 cast, and 24-48 layers of random
@@ -417,6 +436,19 @@ SERVE = {"qwen1.5-0.5b": (1024, (0, 256), "flash_attention"),
 # float32 roundings differ
 LOGIT_TOL = {torch.bfloat16: 0.15, torch.float32: 1e-3}
 REPLAY_TOL = 1e-3       # smoke size, float32: prefill vs decode replay
+# K5 against its plain version, (rtol, atol), both after dividing by the
+# output's largest magnitude: in float32 both sum up to 1024 exact
+# products in another order; in bfloat16 they may differ by one rounding
+# of the output, as K3
+GEMM_TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (2 ** -7, 1e-3)}
+GRANITE_WI = (32, 1280, 1024, 512)      # E, C, D, F: 4 x 1024 tokens, top 8
+GRANITE_WO = (32, 1280, 512, 1024)
+GEMM_CASES = [(2, 128, 256, 128), (4, 256, 256, 384), (1, 128, 512, 256),
+              (2, 8, 200, 72), (2, 100, 200, 72), (2, 1256, 200, 72),
+              GRANITE_WI, GRANITE_WO, (32, 8, 1024, 512)]
+# a MoE layer on both routes from one input chains three K5 products
+# (wi and wg, then wo), each allowed one rounding apart
+MOE_DEPTH = 3
 
 
 def flash_inputs(b, s, h, kh, d, dtype, seed):
@@ -533,23 +565,187 @@ def time_ssd(card: str) -> dict:
     return res
 
 
+def gemm_inputs(e, c, d, f, dtype, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn((e, c, d), device="cuda", generator=g)
+    w = torch.randn((e, d, f), device="cuda", generator=g) * 0.05
+    return x.to(dtype), w.to(dtype)
+
+
+def scaled_gap(out, plain, rtol, atol, label) -> float:
+    """Hold ``out`` to ``plain`` after dividing both by the largest
+    magnitude of ``plain``; return the largest absolute difference."""
+    out, plain = out.float(), plain.float()
+    scale = float(plain.abs().max()) + 1e-6
+    torch.testing.assert_close(out / scale, plain / scale, rtol=rtol,
+                               atol=atol, msg=lambda m: f"{label}: {m}")
+    err = float((out - plain).abs().max())
+    log(f"check {label}: max |kernel - plain| = {err!r} (largest |plain| "
+        f"{scale!r})")
+    return err
+
+
+def check_expert_gemm() -> float:
+    worst = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        rtol, atol = GEMM_TOL[dtype]
+        for i, shape in enumerate(GEMM_CASES):
+            x, w = gemm_inputs(*shape, dtype, seed=400 + i)
+            out = ops.expert_gemm(x, w)
+            torch.cuda.synchronize()
+            if out.shape != shape[:2] + shape[3:] or out.dtype != dtype:
+                raise AssertionError(f"expert_gemm {shape}: output "
+                                     f"{tuple(out.shape)} {out.dtype}")
+            worst = max(worst, scaled_gap(
+                out, ref.expert_gemm(x, w), rtol, atol,
+                f"expert_gemm {str(dtype)[6:]} {shape}"))
+            del x, w, out
+    torch.cuda.empty_cache()
+    return worst
+
+
+def check_expert_ffn() -> None:
+    """``ops.expert_ffn`` (three K5 launches) against the einsum route at
+    granite's prefill shape, with granite's init scales."""
+    e, c, d, f = GRANITE_WI
+    for dtype in (torch.float32, torch.bfloat16):
+        g = torch.Generator(device="cuda").manual_seed(500)
+        experts = {"wi": torch.rand((e, d, f), device="cuda", generator=g),
+                   "wg": torch.rand((e, d, f), device="cuda", generator=g),
+                   "wo": torch.rand((e, f, d), device="cuda", generator=g)}
+        experts = {k: ((v * 2 - 1) / math.sqrt(v.shape[1])).to(dtype)
+                   for k, v in experts.items()}
+        x = torch.randn((e, c, d), device="cuda", generator=g).to(dtype)
+        out = ops.expert_ffn(experts, x)
+        torch.cuda.synchronize()
+        rtol, atol = GEMM_TOL[dtype]
+        scaled_gap(out, moe.expert_ffn(experts, x), MOE_DEPTH * rtol,
+                   MOE_DEPTH * atol,
+                   f"expert_ffn {str(dtype)[6:]} {GRANITE_WI[:3]}, kernel "
+                   "vs torch route")
+        del experts, x, out
+    torch.cuda.empty_cache()
+
+
+def time_expert_gemm(card: str) -> dict:
+    """K5 at granite's wi shape, bf16 (and, logged, float32).  Bound: x
+    and w read and out written once; 2 E C D F operations at the
+    tensor-core rate of the inputs' type (bf16), or the float32 CUDA-core
+    rate (float32: the TPU kernel's contract has no TF32)."""
+    e, c, d, f = GRANITE_WI
+    res = {}
+    for dtype, peak in ((torch.bfloat16, BF16_FLOPS),
+                        (torch.float32, FP32_FLOPS)):
+        x, w = gemm_inputs(*GRANITE_WI, dtype, seed=11)
+        nbytes = x.element_size() * (e * c * d + e * d * f + e * c * f)
+        flops = 2 * e * c * d * f
+        r = {"ms": device_ms(lambda: ops.expert_gemm(x, w), 20),
+             "plain_ms": device_ms(lambda: ref.expert_gemm(x, w), 5),
+             # the nearest single PyTorch call; timed here, never used
+             "library_ms": device_ms(lambda: torch.bmm(x, w), 20),
+             **bound(nbytes, flops, peak)}
+        call_ms = median_ms(lambda: ops.expert_gemm(x, w), 20)
+        log(f"timing expert_gemm {GRANITE_WI} {str(dtype)[6:]} on {card}: "
+            f"kernel {r['ms']!r} ms (one call with its dispatch "
+            f"{call_ms!r} ms), bound {r['bound_ms']!r} ms ({r['bound_by']}, "
+            f"{nbytes} B, {flops} flop), plain {r['plain_ms']!r} ms, "
+            f"library (torch.bmm) {r['library_ms']!r} ms")
+        res[dtype] = r
+        del x, w
+    torch.cuda.empty_cache()
+    return res[torch.bfloat16]
+
+
+class MoeInputs:
+    """Records the input of every ``moe_apply`` call while active (the
+    transformer calls it through the module), for the layer checks."""
+
+    def __init__(self):
+        self.seen = []
+        self._orig = moe.moe_apply
+
+    def __enter__(self):
+        def spy(p, x, cfg, **kw):
+            self.seen.append(x.clone())
+            return self._orig(p, x, cfg, **kw)
+        moe.moe_apply = spy
+        return self.seen
+
+    def __exit__(self, *exc):
+        moe.moe_apply = self._orig
+
+
+def routing_flips(cfg, params, xs_a, xs_b) -> int:
+    """Tokens, summed over the layers, whose top-k expert set differs
+    between two prefills' MoE inputs."""
+    n = 0
+    for p_l, xa, xb in zip(params["layers"], xs_a, xs_b):
+        ea, eb = (moe.route(p_l["moe"], x.reshape(-1, cfg.d_model),
+                            cfg)["expert"].sort(-1).values
+                  for x in (xa, xb))
+        n += int((ea != eb).any(-1).sum())
+    return n
+
+
+def check_moe_layers(cfg, params, inputs, label: str) -> None:
+    """Every MoE layer's input through ``moe_apply`` on both routes: the
+    routing is then the same code on the same input, so aux is equal
+    and y differs only by K5 against the einsum products."""
+    rtol, atol = GEMM_TOL[cfg.torch_dtype]
+    worst = 0.0
+    for li, (p_l, x) in enumerate(zip(params["layers"], inputs)):
+        before = ops.LAUNCHES["expert_gemm"]
+        y_k, aux_k = moe.moe_apply(p_l["moe"], x, cfg, backend="kernel")
+        after_k = ops.LAUNCHES["expert_gemm"]
+        y_t, aux_t = moe.moe_apply(p_l["moe"], x, cfg, backend="torch")
+        torch.cuda.synchronize()
+        if (after_k - before, ops.LAUNCHES["expert_gemm"] - after_k) != (3, 0):
+            raise AssertionError(f"{label} layer {li}: K5 launches "
+                                 f"{after_k - before} (kernel route), "
+                                 f"{ops.LAUNCHES['expert_gemm'] - after_k} "
+                                 "(torch route)")
+        if not torch.equal(aux_k, aux_t):
+            raise AssertionError(f"{label} layer {li}: aux {aux_k} vs {aux_t}")
+        scale = float(y_t.float().abs().max())
+        torch.testing.assert_close(
+            y_k.float() / scale, y_t.float() / scale, rtol=MOE_DEPTH * rtol,
+            atol=MOE_DEPTH * atol, msg=lambda m: f"{label} layer {li}: {m}")
+        worst = max(worst, float((y_k.float() - y_t.float()).abs().max())
+                    / scale)
+    log(f"{label}: {len(inputs)} MoE layers on shared inputs, kernel vs "
+        f"torch route: aux equal, y within {worst!r} of its largest "
+        f"magnitude (limit rtol {MOE_DEPTH * rtol!r}, atol "
+        f"{MOE_DEPTH * atol!r})")
+
+
 def compare_routes(cfg, params, batch, window: int, per_prefill: dict,
                    label: str, card: str) -> dict:
     """One prefill on the kernel route (launch counts zeroed before and
     read after) and one on the torch route; last-token logits within
-    LOGIT_TOL of their largest magnitude; both routes timed.  Returns
-    the kernel route's launch counts."""
+    LOGIT_TOL of their largest magnitude; both routes timed.  For the
+    MoE family, also every layer on both routes from the torch-route
+    prefill's inputs, and the top-k decisions that differ between the
+    two prefills.  Returns the kernel route's launch counts."""
     steps = {r: make_prefill_step(cfg, window=window, backend=r)
              for r in ("kernel", "torch")}
     torch.cuda.synchronize()
-    zero_launches()
-    out_k = steps["kernel"](params, batch)
-    torch.cuda.synchronize()
-    got = expect_launches(f"{label}, kernel route", per_prefill)
-    zero_launches()
-    out_t = steps["torch"](params, batch)
-    torch.cuda.synchronize()
-    expect_launches(f"{label}, torch route", {})
+    with MoeInputs() as in_k:
+        zero_launches()
+        out_k = steps["kernel"](params, batch)
+        torch.cuda.synchronize()
+        got = expect_launches(f"{label}, kernel route", per_prefill)
+    with MoeInputs() as in_t:
+        zero_launches()
+        out_t = steps["torch"](params, batch)
+        torch.cuda.synchronize()
+        expect_launches(f"{label}, torch route", {})
+    if cfg.family == "moe":
+        check_moe_layers(cfg, params, in_t, label)
+        flips = routing_flips(cfg, params, in_k, in_t)
+        log(f"{label}: top-k decisions that differ between the kernel and "
+            f"torch route prefills: {flips} of {len(in_t)} layers x "
+            f"{in_t[0].shape[0] * in_t[0].shape[1]} tokens")
+    del in_k, in_t
     n, s = batch["tokens"].shape
     for nm, out in (("kernel", out_k), ("torch", out_t)):
         if out.shape != (n, 1, cfg.vocab_size) or \
@@ -574,12 +770,12 @@ def compare_routes(cfg, params, batch, window: int, per_prefill: dict,
     return got
 
 
-def serve_arch(arch: str, card: str) -> int:
+def serve_arch(arch: str, card: str) -> dict:
     """Phase 10 for one arch at full width.  Returns the kernel launches
     of one kernel-route prefill (window 0)."""
-    prompt_len, windows, kernel = SERVE[arch]
+    prompt_len, windows, per_layer = SERVE[arch]
     cfg = get_config(arch)
-    per_prefill = {kernel: cfg.num_layers}
+    per_prefill = {k: n * cfg.num_layers for k, n in per_layer.items()}
     torch.cuda.reset_peak_memory_stats()
     gen = torch.Generator(device="cuda").manual_seed(0)
     params = tr.init_params(gen, cfg)
@@ -591,7 +787,7 @@ def serve_arch(arch: str, card: str) -> int:
         label = f"{arch} prefill, window {window}"
         got = compare_routes(cfg, params, batch, window, per_prefill, label,
                              card)
-        launches = got[kernel] if launches is None else launches
+        launches = got if launches is None else launches
     peak = torch.cuda.max_memory_allocated()
     # the same prefill at full width in float32 (the config's widths and
     # depth, float32 weights from the same seed)
@@ -642,18 +838,33 @@ def serve_arch(arch: str, card: str) -> int:
 
 def check_replay_smoke() -> None:
     """Smoke size, float32, on the card: the kernel route's prefill
-    logits == a decode replay (``prefill_cache`` + ``decode_step``)."""
-    for arch in SERVE:
+    logits == a decode replay (``prefill_cache`` + ``decode_step``).
+    The MoE prefill routes all its tokens under a capacity and may drop
+    choices, which the replay (2 tokens a step) never does; it is held
+    at a capacity that cannot drop (E / k), after the drops at the
+    config's own are printed."""
+    for arch, (_, _, per_layer) in SERVE.items():
         cfg = get_config(arch, smoke=True)
         gen = torch.Generator(device="cuda").manual_seed(1)
         params = tr.init_params(gen, cfg)
         toks = torch.randint(0, cfg.vocab_size, (2, 12), generator=gen,
                              device="cuda")
+        if cfg.family == "moe":
+            with MoeInputs() as xs:
+                make_prefill_step(cfg)(params, {"tokens": toks})
+            drops = [int((r["slot"] == cfg.num_experts * r["cap"]).sum())
+                     for r in (moe.route(p_l["moe"], x.reshape(
+                         -1, cfg.d_model), cfg) for p_l, x in
+                         zip(params["layers"], xs))]
+            log(f"{arch} smoke size: choices dropped per layer at capacity "
+                f"factor {cfg.capacity_factor}: {drops}; replay held at "
+                f"{cfg.num_experts / cfg.top_k}")
+            cfg = cfg.replace(capacity_factor=cfg.num_experts / cfg.top_k)
         zero_launches()
         last = make_prefill_step(cfg)(params, {"tokens": toks})
         torch.cuda.synchronize()
-        if ops.LAUNCHES[SERVE[arch][2]] != cfg.num_layers:
-            raise AssertionError(f"{arch} smoke prefill: {ops.LAUNCHES}")
+        expect_launches(f"{arch} smoke prefill", {
+            k: n * cfg.num_layers for k, n in per_layer.items()})
         cache = tr.prefill_cache(params, cfg, toks[:, :-1], cache_len=12)
         dec, _ = tr.decode_step(params, cfg, toks[:, -1:], cache)
         diff = float((last - dec).abs().max())
@@ -680,7 +891,7 @@ def main() -> int:
     # 2. build
     t0 = time.perf_counter()
     logs = build.build(["fill_aggregate", "quantize_int8", "flash_attention",
-                        "ssd_scan"])
+                        "ssd_scan", "expert_gemm"])
     log(f"build: {time.perf_counter() - t0:.2f} s")
     for name, text in logs.items():
         for line in text.splitlines():
@@ -804,11 +1015,14 @@ def main() -> int:
     del offline
     torch.cuda.empty_cache()
 
-    # 9. K3 and K4 against their plain versions, then timed
+    # 9. K3, K4 and K5 against their plain versions, then timed
     flash_err = check_flash()
     ssd_err = check_ssd()
+    gemm_err = check_expert_gemm()
+    check_expert_ffn()
     flash_timing = time_flash(card)
     ssd_timing = time_ssd(card)
+    gemm_timing = time_expert_gemm(card)
 
     # 10. the serving path at full width, then the smoke-size replay check
     with torch.inference_mode():
@@ -837,14 +1051,20 @@ def main() -> int:
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:86",
-        "launches": serve_launches["qwen1.5-0.5b"], "max_abs_err": flash_err,
-        **flash_timing,
+        "launches": serve_launches["qwen1.5-0.5b"]["flash_attention"],
+        "max_abs_err": flash_err, **flash_timing,
     }, {
         "name": "ssd_scan", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
         "replaces": "src/repro/kernels/ssd_scan.py:66",
-        "launches": serve_launches["mamba2-780m"], "max_abs_err": ssd_err,
-        **ssd_timing,
+        "launches": serve_launches["mamba2-780m"]["ssd_scan"],
+        "max_abs_err": ssd_err, **ssd_timing,
+    }, {
+        "name": "expert_gemm", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/expert_gemm.cu",
+        "replaces": "src/repro/kernels/expert_gemm.py:38",
+        "launches": serve_launches["granite-moe-1b-a400m"]["expert_gemm"],
+        "max_abs_err": gemm_err, **gemm_timing,
     }]
     if any(not math.isfinite(k[f]) for k in kernels
            for f in ("ms", "plain_ms", "bound_ms")):

@@ -2,9 +2,11 @@
 
 ``ModelConfig`` carries the same fields as the JAX package's, so a
 configuration reads the same in both; ``torch_dtype`` takes the place of
-``jdtype``.  Ported so far: the paper's CIFAR supernet and the two
+``jdtype``.  Ported so far: the paper's CIFAR supernet, the three
 language models the serving path runs at full width (``qwen1.5-0.5b``,
-dense; ``mamba2-780m``, SSM).  Any other architecture name raises.
+dense; ``mamba2-780m``, SSM; ``granite-moe-1b-a400m``, MoE) and
+``llama4-scout-17b-a16e`` (MoE with a shared expert; too large for one
+card, run at smoke size).  Any other architecture name raises.
 """
 from __future__ import annotations
 
@@ -85,6 +87,8 @@ ARCH_ALIASES = {
     "cifar-supernet": "cifar_supernet",
     "qwen1.5-0.5b": "qwen1p5_0p5b",
     "mamba2-780m": "mamba2_780m",
+    "granite-moe-1b-a400m": "granite_moe_1b_a400m",
+    "llama4-scout-17b-a16e": "llama4_scout_17b_a16e",
 }
 
 
@@ -94,7 +98,7 @@ def get_config(arch: str, smoke: bool = False) -> ModelConfig:
     if mod_name is None:
         raise ValueError(
             f"architecture {arch!r} is not yet ported to repro_torch "
-            f"(ported: {sorted(ARCH_ALIASES)}; the hybrid, MoE, VLM and "
-            "audio families follow, ROADMAP queue 1)")
+            f"(ported: {sorted(ARCH_ALIASES)}; the hybrid, VLM and audio "
+            "families follow, ROADMAP queue 1)")
     mod = importlib.import_module(f"repro_torch.configs.{mod_name}")
     return mod.smoke_config() if smoke else mod.config()

@@ -15,8 +15,10 @@ Language models (``lm_params_from_reference`` / ``lm_params_to_reference``):
 the JAX package stacks every per-layer leaf on a leading ``L`` axis
 (``params["layers"][...]`` of shape ``(L, ...)``); the port keeps a list
 of ``L`` per-layer dicts with the same names and the same per-layer
-layouts (dense ``w`` is ``(d_in, d_out)`` in both).  Leaves are matched
-by path.  bfloat16 leaves cross as float32 numpy arrays holding the same
+layouts (dense ``w`` is ``(d_in, d_out)`` in both; a MoE layer's
+``moe.router.w`` is ``(d, E)``, ``moe.experts.wi``/``wg`` ``(E, d, F)``
+and ``wo`` ``(E, F, d)``, beside ``moe.shared`` where the config has a
+shared expert).  Leaves are matched by path.  bfloat16 leaves cross as float32 numpy arrays holding the same
 values (numpy has no bfloat16); both directions are exact.
 """
 from __future__ import annotations
@@ -79,9 +81,9 @@ def params_to_reference(params: Dict[str, torch.Tensor]):
 
 
 def _lm_family_check(cfg: ModelConfig) -> None:
-    if cfg.family not in ("dense", "ssm") or cfg.supernet:
+    if cfg.family not in ("dense", "moe", "ssm") or cfg.supernet:
         raise NotImplementedError(
-            f"{cfg.name}: only the dense and ssm families without the "
+            f"{cfg.name}: only the dense, moe and ssm families without the "
             "supernet are ported (ROADMAP queue 1)")
 
 

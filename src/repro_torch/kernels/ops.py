@@ -10,12 +10,15 @@ from __future__ import annotations
 
 import torch
 
+import torch.nn.functional as F
+
 from repro_torch.kernels import ref
 
 LAUNCHES = {"fill_aggregate": 0, "quantize_int8": 0,
-            "dequantize_int8": 0, "flash_attention": 0, "ssd_scan": 0}
-# the routes of the language models' attention and SSD scan: the kernel
-# (its plain version on the CPU) or the plain einsum path
+            "dequantize_int8": 0, "flash_attention": 0, "ssd_scan": 0,
+            "expert_gemm": 0}
+# the routes of the language models' attention, SSD scan and expert FFN:
+# the kernel (its plain version on the CPU) or the plain einsum path
 BACKENDS = ("kernel", "torch")
 
 
@@ -194,3 +197,43 @@ def ssd_scan(xs: torch.Tensor, a: torch.Tensor, bm: torch.Tensor,
     y, state = _ssd.launch(xs, a, bm, cm)
     LAUNCHES["ssd_scan"] += 1
     return y, state
+
+
+def expert_gemm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x: (E, C, D); w: (E, D, F); one dtype (float32 or bfloat16),
+    contiguous -> (E, C, F) in x's dtype: ``x[e] @ w[e]`` with float32
+    sums, rounded once (kernel K5).  Any C, D and F >= 1."""
+    _common_device("expert_gemm", x, w)
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError("expert_gemm: x must be float32 or bfloat16, got "
+                        f"{x.dtype}")
+    if w.dtype != x.dtype:
+        raise TypeError(f"expert_gemm: w is {w.dtype}, x is {x.dtype}")
+    if x.dim() != 3 or w.dim() != 3:
+        raise ValueError("expert_gemm: need x (E, C, D) and w (E, D, F), "
+                         f"got {tuple(x.shape)} and {tuple(w.shape)}")
+    e, c, d = x.shape
+    if w.shape[0] != e or w.shape[1] != d:
+        raise ValueError(f"expert_gemm: shape mismatch: x {tuple(x.shape)}, "
+                         f"w {tuple(w.shape)}")
+    if min(e, c, d, w.shape[2]) < 1:
+        raise ValueError(f"expert_gemm: empty axis in x {tuple(x.shape)}, "
+                         f"w {tuple(w.shape)}")
+    for nm, t in (("x", x), ("w", w)):
+        if not t.is_contiguous():
+            raise ValueError(f"expert_gemm: {nm} must be contiguous")
+    if x.device.type == "cpu":
+        return ref.expert_gemm(x, w)
+    from repro_torch.kernels import expert_gemm as _eg
+    out = _eg.launch(x, w)
+    LAUNCHES["expert_gemm"] += 1
+    return out
+
+
+def expert_ffn(experts, x: torch.Tensor) -> torch.Tensor:
+    """SwiGLU expert FFN on dispatched slots through K5: x (E, C, d) ->
+    (E, C, d), ``(silu(x wg) * (x wi)) wo`` per expert, each product
+    rounded to x's dtype."""
+    h = expert_gemm(x, experts["wi"])
+    g = expert_gemm(x, experts["wg"])
+    return expert_gemm(F.silu(g) * h, experts["wo"])

@@ -21,6 +21,12 @@ def fill_aggregate(clients, masks, weights, prev):
     return torch.einsum("m,mp->p", weights.float(), filled).to(prev.dtype)
 
 
+def expert_gemm(x, w):
+    """x: (E, C, D); w: (E, D, F) -> (E, C, F) in x's dtype: the
+    per-expert product ``x[e] @ w[e]`` on float32 copies, rounded once."""
+    return torch.einsum("ecd,edf->ecf", x.float(), w.float()).to(x.dtype)
+
+
 def quantize_int8(x, scale):
     """x: (P,) float; scale: 0-d or (1,) float32 -> (P,) int8 on the
     symmetric 255-level grid: ``x / scale`` rounded half to even, clipped

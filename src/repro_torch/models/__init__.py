@@ -1,3 +1,3 @@
-from repro_torch.models import attention, cnn, layers, ssm, transformer
+from repro_torch.models import attention, cnn, layers, moe, ssm, transformer
 
-__all__ = ["attention", "cnn", "layers", "ssm", "transformer"]
+__all__ = ["attention", "cnn", "layers", "moe", "ssm", "transformer"]

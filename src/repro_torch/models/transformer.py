@@ -1,13 +1,13 @@
-"""Dense and SSM language-model stacks: init, full-sequence forward, and
-serving (cache init, prefill by replay, single-token decode).
+"""Dense, MoE and SSM language-model stacks: init, full-sequence forward,
+and serving (cache init, prefill by replay, single-token decode).
 
 Parameters are nested dicts of tensors with the JAX package's names and
 per-layer layouts; where the JAX package stacks every per-layer leaf on a
 leading ``L`` axis and scans over it, the port keeps ``params["layers"]``
 as a list of per-layer dicts and loops over it in Python
 (``convert.lm_params_from_reference`` carries weights across).  Only the
-``dense`` and ``ssm`` families without the supernet are ported: the
-others raise, naming their ROADMAP item.
+``dense``, ``moe`` and ``ssm`` families without the supernet are
+ported: the others raise, naming their ROADMAP item.
 """
 from __future__ import annotations
 
@@ -18,6 +18,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops as kops
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (
     embed, embedding_init, mlp, mlp_init, rmsnorm, rmsnorm_init, unembed,
@@ -27,14 +28,13 @@ Params = Dict[str, Any]
 
 _NOT_PORTED = {
     "hybrid": "ROADMAP queue 1: the hybrid family (zamba2)",
-    "moe": "ROADMAP queue 1: the MoE family with K5",
     "vlm": "ROADMAP queue 1: VLM and audio",
     "audio": "ROADMAP queue 1: VLM and audio",
 }
 
 
 def _layer_kind(cfg: ModelConfig) -> str:
-    if cfg.family not in ("dense", "ssm", *_NOT_PORTED):
+    if cfg.family not in ("dense", "moe", "ssm", *_NOT_PORTED):
         raise ValueError(f"{cfg.name}: not a language model "
                          f"(family {cfg.family!r})")
     if cfg.supernet:
@@ -50,13 +50,14 @@ def _layer_kind(cfg: ModelConfig) -> str:
 
 def block_init(gen: torch.Generator, cfg: ModelConfig, kind: str) -> Params:
     d, dt, dev = cfg.d_model, cfg.torch_dtype, gen.device
-    if kind == "dense":
+    if kind in ("dense", "moe"):
         return {"ln1": rmsnorm_init(d, dt, dev),
                 "attn": attn.attention_init(
                     gen, d, cfg.num_heads, cfg.num_kv_heads, cfg.hd, dt,
                     qkv_bias=cfg.qkv_bias),
                 "ln2": rmsnorm_init(d, dt, dev),
-                "mlp": mlp_init(gen, d, cfg.d_ff, dt)}
+                **({"moe": moe_mod.moe_init(gen, cfg)} if kind == "moe"
+                   else {"mlp": mlp_init(gen, d, cfg.d_ff, dt)})}
     return {"ln": rmsnorm_init(d, dt, dev),
             "ssm": ssm_mod.ssm_init(gen, cfg)}
 
@@ -82,38 +83,48 @@ def _attn_kw(cfg: ModelConfig, window: int) -> Dict[str, Any]:
 
 def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
             window: int = 0, backend: str = "kernel",
-            return_hidden: bool = False) -> torch.Tensor:
+            return_hidden: bool = False, return_aux: bool = False):
     """Full-sequence forward.  tokens: (B, S) integers -> logits
     (B, S, V), or the final hidden states (B, S, d) with
-    ``return_hidden``.  (The JAX package's forward also returns the MoE
-    aux loss and an optional cache; neither family here has either.)"""
+    ``return_hidden``; with ``return_aux``, a pair of that and the MoE
+    load-balance loss summed over the layers (float32; 0 for the other
+    families), as the JAX package's forward returns it beside its
+    optional cache.  ``backend`` routes attention, the SSD scan and the
+    expert FFN."""
     kind = _layer_kind(cfg)
     kops.check_backend(backend)
     b, s = tokens.shape
     h = embed(params["embed"], tokens)
     positions = torch.arange(s, dtype=torch.int32,
                              device=h.device).expand(b, s)
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
     for p_l in params["layers"]:
-        if kind == "dense":
+        if kind in ("dense", "moe"):
             h = h + attn.self_attention(p_l["attn"], rmsnorm(p_l["ln1"], h),
                                         positions, backend=backend,
                                         **_attn_kw(cfg, window))
-            h = h + mlp(p_l["mlp"], rmsnorm(p_l["ln2"], h))
+            if kind == "moe":
+                y, a = moe_mod.moe_apply(p_l["moe"], rmsnorm(p_l["ln2"], h),
+                                         cfg, backend=backend)
+                h, aux = h + y, aux + a
+            else:
+                h = h + mlp(p_l["mlp"], rmsnorm(p_l["ln2"], h))
         else:
             h = h + ssm_mod.ssm_forward(p_l["ssm"], rmsnorm(p_l["ln"], h),
                                         cfg, backend=backend)
     h = rmsnorm(params["final_ln"], h)
-    return h if return_hidden else unembed(params["embed"], h)
+    out = h if return_hidden else unembed(params["embed"], h)
+    return (out, aux) if return_aux else out
 
 
 def init_cache(params: Params, cfg: ModelConfig, batch: int,
                cache_len: int) -> Params:
     """An empty decode cache: ``t`` (the next position, a host int) and
-    one KV ring (dense) or conv/state record (ssm) per layer."""
+    one KV ring (dense, moe) or conv/state record (ssm) per layer."""
     kind = _layer_kind(cfg)
     dt = cfg.torch_dtype
     dev = params["embed"]["table"].device
-    if kind == "dense":
+    if kind in ("dense", "moe"):
         layers = [attn.init_cache(batch, cfg.num_kv_heads, cfg.hd, cache_len,
                                   dt, dev) for _ in range(cfg.num_layers)]
     else:
@@ -140,18 +151,24 @@ def decode_step(params: Params, cfg: ModelConfig, token: torch.Tensor,
                 ) -> Tuple[torch.Tensor, Params]:
     """One decode step.  token: (B, 1) -> (logits (B, 1, V), cache).  The
     cache is updated in place (KV slots, per-layer records, ``t``) and
-    returned."""
+    returned.  No kernel launches: attention reads the cache with
+    einsums, and the MoE takes its torch route (routing over the B
+    tokens of the step)."""
     kind = _layer_kind(cfg)
     t = cache["t"]
     h = embed(params["embed"], token)
     for li, p_l in enumerate(params["layers"]):
         c_l = cache["layers"][li]
-        if kind == "dense":
+        if kind in ("dense", "moe"):
             y, c_l = attn.decode_self_attention(
                 p_l["attn"], rmsnorm(p_l["ln1"], h), c_l, t,
                 **_attn_kw(cfg, window))
             h = h + y
-            h = h + mlp(p_l["mlp"], rmsnorm(p_l["ln2"], h))
+            if kind == "moe":
+                h = h + moe_mod.moe_apply(p_l["moe"], rmsnorm(p_l["ln2"], h),
+                                          cfg, backend="torch")[0]
+            else:
+                h = h + mlp(p_l["mlp"], rmsnorm(p_l["ln2"], h))
         else:
             y, c_l = ssm_mod.ssm_decode_step(p_l["ssm"],
                                              rmsnorm(p_l["ln"], h), c_l, cfg)

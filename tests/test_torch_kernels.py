@@ -1,9 +1,10 @@
 """repro_torch kernels: the plain versions of fill-aggregation, flash
-attention and the SSD chunk scan against the JAX package (its pure-jnp
-oracles and its Pallas kernels in interpret mode), both Algorithm 3
-routes, the wrappers' checks, and — on a CUDA card only — the
-hand-written kernels (fill-aggregation, int8 quantize and dequantize,
-flash attention, SSD chunk scan) against their plain versions.
+attention, the SSD chunk scan and the grouped expert GEMM against the
+JAX package (its pure-jnp oracles and its Pallas kernels in interpret
+mode), both Algorithm 3 routes, the wrappers' checks, and — on a CUDA
+card only — the hand-written kernels (fill-aggregation, int8 quantize
+and dequantize, flash attention, SSD chunk scan, expert GEMM) against
+their plain versions.
 
 Tolerances: float32 sums of at most 8 terms taken in another order, so
 1e-6 (rtol and atol) for the flat function; the tree routes add the
@@ -14,6 +15,12 @@ SSD scan take the JAX package's own kernel tolerances
 (tests/test_kernels.py): rtol 2e-5 / atol 1e-4 in float32 and rtol 2e-2
 / atol 1e-1 in bfloat16 (one bf16 rounding of the output can flip), and
 rtol = atol = 2e-4 for the scan (chunked against sequential sums).
+The expert GEMM takes the JAX sweep's (rtol 2e-5 / atol 2e-4 in float32,
+2e-2 / 2e-1 in bfloat16, on outputs divided by their largest magnitude);
+on the card, against its plain version, rtol = atol = 1e-5 in float32
+(float32 sums of up to 1024 exact products in another order) and rtol
+2^-7 / atol 1e-3 in bfloat16 (one rounding of the output), after the
+same division.
 """
 import pytest
 
@@ -38,6 +45,12 @@ FLASH_SHAPES = [(2, 128, 4, 4, 64), (1, 256, 4, 2, 128),
 MASKS = [(True, 0), (True, 64), (False, 0)]
 SSD_SHAPES = [(2, 4, 64, 3, 32, 16), (1, 2, 128, 2, 64, 64),
               (1, 8, 32, 1, 16, 8)]
+# (E, C, D, F): the JAX package's sweep, then ragged tiles (C, F and D
+# no multiple of 128; the Pallas kernel takes them as one block each)
+GEMM_SHAPES = [(2, 128, 256, 128), (4, 256, 256, 384), (1, 128, 512, 256),
+               (2, 100, 200, 72), (3, 8, 200, 72)]
+GEMM_TOL = {"float32": 2e-5, "bfloat16": 2e-2}      # atol: 10x
+KERNEL_GEMM_TOL = {"float32": (1e-5, 1e-5), "bfloat16": (2 ** -7, 1e-3)}
 
 
 def rand_inputs(m, p, seed=0):
@@ -126,6 +139,86 @@ def test_plain_ssd_scan_matches_reference(jax_ref, b, nc, q, h, p, n):
                                    rtol=SSD_TOL, atol=SSD_TOL)
         np.testing.assert_allclose(st.numpy(), np.asarray(s_r),
                                    rtol=SSD_TOL, atol=SSD_TOL)
+
+
+def gemm_np(e, c, d, f, seed):
+    rng = np.random.default_rng(seed)
+    return (rng.normal(size=(e, c, d)).astype(np.float32),
+            rng.normal(size=(e, d, f)).astype(np.float32) * 0.05)
+
+
+def scaled_close(ours, exp, rtol, atol):
+    """Compare after dividing both by the expected output's largest
+    magnitude, as the JAX package's sweep does."""
+    exp = np.asarray(exp, np.float32)
+    scale = float(np.abs(exp).max()) + 1e-6
+    np.testing.assert_allclose(np.asarray(ours, np.float32) / scale,
+                               exp / scale, rtol=rtol, atol=atol)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("e,c,d,f", GEMM_SHAPES)
+def test_plain_expert_gemm_matches_reference(jax_ref, dtype, e, c, d, f):
+    _, jops, jref = jax_ref
+    import jax.numpy as jnp
+    x, w = gemm_np(e, c, d, f, seed=c + f)
+    tdt = getattr(torch, dtype)
+    ours = ops.expert_gemm(torch.from_numpy(x).to(tdt),
+                           torch.from_numpy(w).to(tdt))
+    assert ours.dtype == tdt and ours.shape == (e, c, f)
+    assert ops.LAUNCHES["expert_gemm"] == 0
+    jx, jw = jnp.asarray(x, getattr(jnp, dtype)), jnp.asarray(
+        w, getattr(jnp, dtype))
+    tol = GEMM_TOL[dtype]
+    for fn in (jref.expert_gemm, jops.expert_gemm):
+        scaled_close(ours.float().numpy(), fn(jx, jw), tol, 10 * tol)
+
+
+def test_expert_ffn_matches_reference(jax_ref):
+    """Three K5 products with silu(g) * h between them (its plain
+    version here) == the JAX package's kernel route and its einsum
+    module, at the JAX test's shape and tolerance."""
+    _, jops, _ = jax_ref
+    import jax.numpy as jnp
+    from repro.models.moe import expert_ffn as jffn
+    from repro_torch.models.moe import expert_ffn
+    e, c, d, f = 2, 128, 128, 256
+    rng = np.random.default_rng(11)
+    experts = {"wi": rng.normal(size=(e, d, f)) * 0.05,
+               "wg": rng.normal(size=(e, d, f)) * 0.05,
+               "wo": rng.normal(size=(e, f, d)) * 0.05}
+    experts = {k: v.astype(np.float32) for k, v in experts.items()}
+    x = rng.normal(size=(e, c, d)).astype(np.float32)
+    pt = {k: torch.from_numpy(v) for k, v in experts.items()}
+    ours = ops.expert_ffn(pt, torch.from_numpy(x)).numpy()
+    jexp = {k: jnp.asarray(v) for k, v in experts.items()}
+    for exp in (jops.expert_ffn(jexp, jnp.asarray(x)),
+                jffn(jexp, jnp.asarray(x))):
+        np.testing.assert_allclose(ours, np.asarray(exp), rtol=1e-4,
+                                   atol=1e-5)
+    np.testing.assert_allclose(
+        ours, expert_ffn(pt, torch.from_numpy(x)).numpy(), rtol=1e-4,
+        atol=1e-5)
+    assert ops.LAUNCHES["expert_gemm"] == 0
+
+
+@pytest.mark.parametrize("case", ["mixed_devices", "dtype", "mixed_dtype",
+                                  "rank", "experts", "depth", "contiguous",
+                                  "empty"])
+def test_expert_gemm_wrapper_rejects_what_the_kernel_does_not_take(case):
+    x, w = map(torch.from_numpy, gemm_np(2, 16, 32, 24, seed=0))
+    args = {"mixed_devices": (x, w.to("meta")),
+            "dtype": (x.half(), w.half()),
+            "mixed_dtype": (x, w.bfloat16()),
+            "rank": (x[0], w[0]),
+            "experts": (x, w[:1].contiguous()),
+            "depth": (x, w[:, :16].contiguous()),
+            "contiguous": (x.transpose(1, 2).contiguous().transpose(1, 2),
+                           w),
+            "empty": (x[:, :0], w)}[case]
+    with pytest.raises((TypeError, ValueError)):
+        ops.expert_gemm(*args)
+    assert ops.LAUNCHES["expert_gemm"] == 0
 
 
 @pytest.mark.parametrize("backend", ["torch", "kernel"])
@@ -381,3 +474,53 @@ def test_cuda_ssd_scan_matches_plain_version(cuda, b, nc, q, h, p, n):
     y_r, s_r = ref.ssd_scan(*args)
     torch.testing.assert_close(y, y_r, rtol=SSD_TOL, atol=SSD_TOL)
     torch.testing.assert_close(st, s_r, rtol=SSD_TOL, atol=SSD_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("e,c,d,f", GEMM_SHAPES + [
+    (2, 1256, 200, 72),          # ragged C of a 4 x 1000-token prefill
+    (32, 1280, 1024, 512),       # granite-moe-1b-a400m's prefill, wi/wg
+    (32, 1280, 512, 1024),       # the same, wo
+    (32, 8, 1024, 512),          # decode
+    (1, 1, 1, 1), (2, 3, 5, 7)])  # one element; odd everything
+def test_cuda_expert_gemm_matches_plain_version(cuda, dtype, e, c, d, f):
+    tdt = getattr(torch, dtype)
+    x, w = (torch.from_numpy(a).to(cuda, tdt)
+            for a in gemm_np(e, c, d, f, seed=c))
+    before = ops.LAUNCHES["expert_gemm"]
+    out = ops.expert_gemm(x, w)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["expert_gemm"] == before + 1
+    assert out.dtype == tdt and out.shape == (e, c, f)
+    plain = ref.expert_gemm(x, w).float()
+    scale = float(plain.abs().max()) + 1e-6
+    rtol, atol = KERNEL_GEMM_TOL[dtype]
+    torch.testing.assert_close(out.float() / scale, plain / scale, rtol=rtol,
+                               atol=atol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_expert_ffn_matches_torch_route(cuda, dtype):
+    """``ops.expert_ffn`` (three K5 launches) against the einsum module
+    at granite's expert shape: in bfloat16 the routes may differ by one
+    rounding of each of the three products."""
+    from repro_torch.models.moe import expert_ffn
+    tdt = getattr(torch, dtype)
+    g = torch.Generator(device=cuda).manual_seed(3)
+    e, c, d, f = 32, 256, 1024, 512
+    experts = {"wi": torch.randn(e, d, f, device=cuda, generator=g) * 0.03,
+               "wg": torch.randn(e, d, f, device=cuda, generator=g) * 0.03,
+               "wo": torch.randn(e, f, d, device=cuda, generator=g) * 0.04}
+    experts = {k: v.to(tdt) for k, v in experts.items()}
+    x = torch.randn(e, c, d, device=cuda, generator=g).to(tdt)
+    before = ops.LAUNCHES["expert_gemm"]
+    out = ops.expert_ffn(experts, x)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["expert_gemm"] == before + 3
+    exp = expert_ffn(experts, x).float()
+    scale = float(exp.abs().max())
+    rtol, atol = KERNEL_GEMM_TOL[dtype]
+    torch.testing.assert_close(out.float() / scale, exp / scale,
+                               rtol=3 * rtol, atol=3 * atol)

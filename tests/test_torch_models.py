@@ -1,5 +1,6 @@
 """repro_torch language-model modules against the JAX package at smoke
-size (``smoke_config()``: 2 layers, d_model 128, float32).
+size (``smoke_config()``: 2 layers, d_model 128, float32): the dense,
+SSM and MoE families.
 
 The weights come from the JAX package's own init, carried across with
 ``repro_torch.convert.lm_params_from_reference``; every input is made
@@ -36,7 +37,9 @@ from repro_torch.models import transformer as tr  # noqa: E402
 
 ELEM_TOL = 1e-5
 TOL = 1e-4
-ARCHS = ["qwen1.5-0.5b", "mamba2-780m"]
+# llama4's smoke config is the only one with a shared expert
+ARCHS = ["qwen1.5-0.5b", "mamba2-780m", "granite-moe-1b-a400m",
+         "llama4-scout-17b-a16e"]
 
 
 def close(ours, theirs, tol):
@@ -228,6 +231,37 @@ def test_ssm_decode_steps_match_reference(weights):
         close(cache[k], jcache[k], TOL)
 
 
+@pytest.mark.parametrize("backend", ["torch", "kernel"])
+def test_moe_layer_and_aux_sum_match_reference(weights, backend):
+    """Layer 0's MoE block on both routes == the JAX package's, and the
+    forward's aux loss, summed over the layers, == the JAX forward's."""
+    from repro.models import moe as jmoe
+    from repro_torch.models import moe
+    cfg, ref, params = weights["granite-moe-1b-a400m"]
+    jcfg = ref_get_config("granite-moe-1b-a400m", smoke=True)
+    x = np.random.default_rng(9).normal(size=(2, 12, 128)).astype(
+        np.float32) * 0.5
+    y, aux = moe.moe_apply(params["layers"][0]["moe"], torch.from_numpy(x),
+                           cfg, backend=backend)
+    y_r, aux_r = jmoe._moe_apply_gather(layer0(ref)["moe"], jnp.asarray(x),
+                                        jcfg)
+    close(y, y_r, ELEM_TOL)
+    close(aux, aux_r, ELEM_TOL)
+    toks = np.random.default_rng(10).integers(0, 512, size=(2, 12)).astype(
+        np.int32)
+    logits, aux = tr.forward(params, cfg, torch.from_numpy(toks),
+                             backend=backend, return_aux=True)
+    logits_r, aux_r, _ = jtr.forward(ref, jcfg, jnp.asarray(toks))
+    close(logits, logits_r, TOL)
+    close(aux, aux_r, ELEM_TOL)
+    assert float(aux) > cfg.num_layers * (1.0 - 1e-3)   # >= 1 a layer
+    # the other families report no aux loss
+    qcfg, _, qparams = weights["qwen1.5-0.5b"]
+    _, zero = tr.forward(qparams, qcfg, torch.from_numpy(toks),
+                         backend=backend, return_aux=True)
+    assert float(zero) == 0.0
+
+
 @pytest.mark.parametrize("backend", ["xla", "pallas", "chunked", "cuda"])
 def test_other_route_names_raise(weights, backend):
     cfg, _, params = weights["qwen1.5-0.5b"]
@@ -251,7 +285,7 @@ def test_unported_model_kinds_raise(arch, match):
         tr.init_params(torch.Generator().manual_seed(0), cfg)
 
 
-@pytest.mark.parametrize("family", ["hybrid", "moe", "vlm", "audio"])
+@pytest.mark.parametrize("family", ["hybrid", "vlm", "audio"])
 def test_unported_families_raise_naming_their_roadmap_item(family):
     cfg = get_config("qwen1.5-0.5b", smoke=True).replace(family=family)
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):

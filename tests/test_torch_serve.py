@@ -1,5 +1,6 @@
 """repro_torch's LM serving path against the JAX package at smoke size,
-for qwen1.5-0.5b (dense) and mamba2-780m (SSM).
+for qwen1.5-0.5b (dense), mamba2-780m (SSM) and granite-moe-1b-a400m
+(MoE).
 
 Per arch, one module fixture carries the JAX package's init across
 (``convert.lm_params_from_reference``) and makes each JAX run once: the
@@ -31,7 +32,7 @@ from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models import transformer as tr  # noqa: E402
 
 TOL = 1e-4
-ARCHS = ["qwen1.5-0.5b", "mamba2-780m"]
+ARCHS = ["qwen1.5-0.5b", "mamba2-780m", "granite-moe-1b-a400m"]
 B, S, STEPS, WINDOW = 2, 12, 8, 5
 
 
@@ -69,7 +70,8 @@ def test_forward_matches_reference_routes(served, backend):
     for route in ("xla", "pallas"):
         close(logits, ref[route])
     # on the CPU the kernel route takes the plain versions: no launch
-    assert ops.LAUNCHES["flash_attention"] == ops.LAUNCHES["ssd_scan"] == 0
+    assert (ops.LAUNCHES["flash_attention"] == ops.LAUNCHES["ssd_scan"]
+            == ops.LAUNCHES["expert_gemm"] == 0)
 
 
 @pytest.mark.parametrize("backend", ["torch", "kernel"])
@@ -92,8 +94,21 @@ def test_prefill_cache_then_decode_matches_reference(served):
     logits, cache = tr.decode_step(params, cfg, t[:, -1:], cache)
     assert cache["t"] == S
     close(logits, ref["decode"])
-    # the decode replay reproduces the full forward's last position
-    close(logits, ref["xla"][:, -1:])
+    if cfg.family != "moe":
+        # the decode replay reproduces the full forward's last position
+        close(logits, ref["xla"][:, -1:])
+        return
+    # The MoE prefill routes all B x S tokens under a capacity and drops
+    # the overflow (the latest tokens first: 1 and 3 choices in the two
+    # layers here); the replay routes B tokens a step and never drops.
+    # The gap is the reference's own: the port's equals it ...
+    forward_last = tr.forward(params, cfg, t)[:, -1:]
+    close(logits - forward_last,
+          ref["decode"] - np.asarray(ref["xla"][:, -1:]))
+    # ... and at a capacity that cannot bind (E / k: every expert has a
+    # slot for every token) the replay reproduces the forward
+    no_drop = cfg.replace(capacity_factor=cfg.num_experts / cfg.top_k)
+    close(logits, tr.forward(params, no_drop, t)[:, -1:])
 
 
 def test_greedy_generate_matches_reference_tokens(served):
@@ -104,8 +119,9 @@ def test_greedy_generate_matches_reference_tokens(served):
     np.testing.assert_array_equal(out.numpy(), ref["greedy"])
 
 
-def test_serve_main_runs_on_the_cpu(capsys):
-    serve.main(["--arch", "mamba2-780m", "--device", "cpu", "--batch", "2",
+@pytest.mark.parametrize("arch", ["mamba2-780m", "granite-moe-1b-a400m"])
+def test_serve_main_runs_on_the_cpu(capsys, arch):
+    serve.main(["--arch", arch, "--device", "cpu", "--batch", "2",
                 "--prompt-len", "5", "--steps", "3"])
     out = capsys.readouterr().out
     assert "generated (2, 8) tokens" in out and "on cpu" in out
@@ -116,3 +132,21 @@ def test_serve_main_raises_without_a_card():
         pytest.skip("a CUDA card is present")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         serve.main(["--arch", "qwen1.5-0.5b"])
+
+
+def test_prefill_trace_summarizes_device_events():
+    from repro_torch.launch.prefill_trace import summarize
+    events = [("gemm_bf16", 200.0), ("flash", 1000.0), ("gemm_bf16", 300.0),
+              ("copy", 50.0)]
+    out = summarize(events, wall_ms=2.0, top=2)
+    assert out["busy_ms"] == pytest.approx(1.55)
+    assert out["idle_share"] == pytest.approx(1 - 1.55 / 2.0)
+    assert out["top"] == [("flash", 1, 1.0), ("gemm_bf16", 2, 0.5)]
+
+
+def test_prefill_trace_raises_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    from repro_torch.launch import prefill_trace
+    with pytest.raises(RuntimeError, match="needs a CUDA device"):
+        prefill_trace.main(["--arch", "granite-moe-1b-a400m"])
