@@ -9,7 +9,10 @@ Phases, each fatal on failure:
    convolutions and matmuls in full float32 (TF32 off) and cuDNN
    deterministic, so that two runs differ only where the code differs;
 2. build: every CUDA kernel of the main path, from ``csrc/`` with nvcc,
-   one nvcc per source, all started together;
+   one nvcc per source, all started together (ptxas's report of
+   registers and spills logged); the tensor-core flash attention's
+   registers, local and shared memory per variant, with no local memory
+   (no spill);
 3. check: each kernel against its plain PyTorch version on the card, at
    the main path's shapes and at ragged ones: fill-aggregation within
    rtol = atol = 1e-6, int8 quantize/dequantize bit for bit (exact ties,
@@ -41,11 +44,14 @@ Phases, each fatal on failure:
    GEMM (K5) against their plain versions on the card: K3 in float32 and
    bfloat16 at the shapes of the
    JAX package's kernel sweep (GQA, MQA, S = 384), S = 100 (one ragged
-   tile), head dim 80 and qwen1.5-0.5b's prefill (4, 1024, 16, 16, 64),
+   tile), head dims 80 and 36, qwen1.5-0.5b's prefill (4, 1024, 16, 16,
+   64) and granite-moe-1b-a400m's (4, 1024, 16, 8, 64),
    each causal, with window 64 and 256, and bidirectional (rtol 2e-5 /
    atol 1e-4 in float32, 2^-7 / 1e-3 in bfloat16: one rounding of the
-   output); K4 at the sweep's
-   shapes, two P tiles and mamba2-780m's prefill (rtol = atol = 2e-4);
+   output), each call on the kernel its dtype and head dim select (bf16
+   with D % 8 == 0: the tensor-core kernel; else the CUDA-core one); K4
+   at the sweep's shapes, two P tiles and mamba2-780m's prefill (rtol =
+   atol = 2e-4);
    K5 in float32 and bfloat16 at the JAX sweep's shapes, ragged C = 8,
    100 and 1256 (F 72, D 200), granite-moe-1b-a400m's prefill (wi/wg
    and wo) and decode shapes, after dividing by the output's largest
@@ -53,14 +59,17 @@ Phases, each fatal on failure:
    and ``ops.expert_ffn`` (three K5 launches) against the einsum
    ``moe.expert_ffn`` at granite's prefill shape; each timed at its
    serving shape beside its bound and its plain version, K3 also beside
-   ``scaled_dot_product_attention`` and K5 beside ``torch.bmm``;
+   ``scaled_dot_product_attention`` (at qwen's and granite's shapes and
+   at window 256) and K5 beside ``torch.bmm``;
 10. the serving path at full width, bf16, seeded random weights on the
    card, 4 requests: for qwen1.5-0.5b (1024-token prompt; also with
    window 256), mamba2-780m (1000-token prompt: chunk padding) and
    granite-moe-1b-a400m (1024-token prompt; also with window 256),
    ``make_prefill_step`` on the kernel route (launch counts zeroed
    before and read after: per layer one K3, one K4, or one K3 and three
-   K5) against the torch route, within LOGIT_TOL of the logits' largest
+   K5; every K3 of a bf16 prefill on the tensor-core kernel, of a
+   float32 one on the CUDA-core kernel) against the torch route, within
+   LOGIT_TOL of the logits' largest
    magnitude (15 % in bf16; 0.1 % in a float32 prefill at the same
    widths and depth).  For granite also: every MoE layer's input from
    the torch-route prefill through ``moe_apply`` on both routes (equal
@@ -104,6 +113,7 @@ from repro_torch.comm.quantize import leaf_scale  # noqa: E402
 from repro_torch.engine import FedAvgBaseline, FedEngine, OfflineNas, \
     RunConfig  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
+from repro_torch.kernels import flash_attention as flash  # noqa: E402
 from repro_torch.launch.serve import greedy_generate, make_decode_step, \
     make_prefill_step  # noqa: E402
 from repro_torch.models import moe  # noqa: E402
@@ -346,8 +356,9 @@ def time_roundtrip(card: str, api) -> dict:
 
 
 def zero_launches() -> None:
-    for k in ops.LAUNCHES:
-        ops.LAUNCHES[k] = 0
+    for counts in (ops.LAUNCHES, flash.VARIANT_LAUNCHES):
+        for k in counts:
+            counts[k] = 0
 
 
 def expect_launches(label: str, expected: dict) -> dict:
@@ -359,6 +370,21 @@ def expect_launches(label: str, expected: dict) -> dict:
     if got != expected:
         raise AssertionError(f"{label}: launches {got}, expected {expected}")
     return got
+
+
+def expect_variants(label: str, cfg, per_prefill: dict) -> None:
+    """The K3 launches of one prefill by kernel: all on the tensor-core
+    kernel in bf16 (every config's head dim is a multiple of 8), all on
+    the CUDA-core kernel in float32."""
+    n = per_prefill.get("flash_attention", 0)
+    which = "tensor_core" if cfg.torch_dtype == torch.bfloat16 \
+        else "cuda_core"
+    expected = {**dict.fromkeys(flash.VARIANT_LAUNCHES, 0), which: n}
+    got = dict(flash.VARIANT_LAUNCHES)
+    log(f"{label} flash_attention launches by kernel: {got}")
+    if got != expected:
+        raise AssertionError(f"{label}: flash_attention kernels {got}, "
+                             f"expected {expected}")
 
 
 def full_width_clients():
@@ -415,10 +441,20 @@ def same_trajectory(a, b, label: str, tol: float) -> float:
 FLASH_TOL = {torch.float32: (2e-5, 1e-4), torch.bfloat16: (2 ** -7, 1e-3)}
 SSD_TOL = 2e-4
 QWEN_ATTN = (4, 1024, 16, 16, 64)       # B, S, H, Kh, D of a qwen prefill
+GRANITE_ATTN = (4, 1024, 16, 8, 64)     # granite's prefill: GQA, 2 heads a KV
 MAMBA_SSD = (4, 8, 128, 48, 64, 128)    # B, NC, Q, H, P, N of a mamba2
 #                                         prefill (1000 tokens -> 8 chunks)
+# the sweep's shapes, a ragged tile, head dims 80 (zamba2) and 36 (bf16
+# with D % 8 != 0: the CUDA-core kernel), qwen's and granite's prefills
 FLASH_CASES = [(2, 128, 4, 4, 64), (1, 256, 4, 2, 128), (1, 384, 6, 1, 64),
-               (2, 100, 4, 2, 64), (1, 256, 4, 4, 80), QWEN_ATTN]
+               (2, 100, 4, 2, 64), (1, 256, 4, 4, 80), (1, 256, 4, 2, 36),
+               QWEN_ATTN, GRANITE_ATTN]
+# K3 timed at these (shape, window), causal, bf16, each beside sdpa on the
+# same shape and mask; the first is the kernels line's own
+FLASH_TIMED = [(QWEN_ATTN, 0), (GRANITE_ATTN, 0), (QWEN_ATTN, 256)]
+# head dims of the tensor-core kernel's four variants (D <= 64, 128, 192,
+# 256), whose registers, local memory and shared memory are reported
+TC_HEAD_DIMS = (64, 128, 192, 256)
 FLASH_MASKS = [(True, 0), (True, 64), (True, 256), (False, 0)]
 SSD_CASES = [(2, 4, 64, 3, 32, 16), (1, 2, 128, 2, 64, 64),
              (1, 8, 32, 1, 16, 8), (1, 2, 128, 2, 80, 64), MAMBA_SSD]
@@ -467,15 +503,28 @@ def ssd_inputs(b, nc, q, h, p, n, seed):
 
 
 def check_flash() -> float:
+    """K3 against its plain version at every case and mask, in float32
+    and bf16; each call must run one kernel: the tensor-core kernel for
+    bf16 with D % 8 == 0, else the CUDA-core kernel."""
     worst = 0.0
     for dtype in (torch.float32, torch.bfloat16):
         rtol, atol = FLASH_TOL[dtype]
         for i, shape in enumerate(FLASH_CASES):
             q, k, v = flash_inputs(*shape, dtype, seed=200 + i)
+            which = "tensor_core" if (dtype == torch.bfloat16
+                                      and shape[-1] % 8 == 0) \
+                else "cuda_core"
             for causal, window in FLASH_MASKS:
+                before = dict(flash.VARIANT_LAUNCHES)
                 out = ops.flash_attention(q, k, v, causal=causal,
                                           window=window)
                 torch.cuda.synchronize()
+                ran = {n: flash.VARIANT_LAUNCHES[n] - before[n]
+                       for n in before}
+                if ran != {**dict.fromkeys(before, 0), which: 1}:
+                    raise AssertionError(f"flash_attention {shape} "
+                                         f"{dtype}: ran {ran}, expected "
+                                         f"one {which} launch")
                 plain = ref.flash_attention(q, k, v, causal=causal,
                                             window=window)
                 torch.testing.assert_close(out.float(), plain.float(),
@@ -483,8 +532,8 @@ def check_flash() -> float:
                 err = float((out.float() - plain.float()).abs().max())
                 worst = max(worst, err)
                 log(f"check flash_attention {str(dtype)[6:]} {shape} "
-                    f"causal={causal} window={window}: max |kernel - "
-                    f"plain| = {err!r}")
+                    f"causal={causal} window={window} ({which}): max "
+                    f"|kernel - plain| = {err!r}")
             del q, k, v
     torch.cuda.empty_cache()
     return worst
@@ -509,30 +558,75 @@ def check_ssd() -> float:
     return worst
 
 
+def flash_pairs(s: int, window: int) -> int:
+    """Unmasked (query, key) pairs of one causal head of length ``s``."""
+    if not window:
+        return s * (s + 1) // 2
+    w = min(window, s)
+    return w * (w + 1) // 2 + (s - w) * w
+
+
 def time_flash(card: str) -> dict:
-    """K3 at qwen1.5-0.5b's prefill shape, bf16, causal.  Bound: q, k, v
-    read and out written once; 4 D flops per unmasked (query, key) pair
-    (q.k and p.v) at the bf16 tensor-core rate."""
-    b, s, h, kh, d = QWEN_ATTN
-    q, k, v = flash_inputs(*QWEN_ATTN, torch.bfloat16, seed=9)
-    nbytes = 2 * (2 * b * s * h * d + 2 * b * s * kh * d)
-    flops = 4 * d * b * h * (s * (s + 1) // 2)
-    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))   # (B, H, S, D)
+    """K3 at the FLASH_TIMED cases, bf16, causal, each beside
+    ``scaled_dot_product_attention`` on the same shape and mask (GQA as
+    ``enable_gqa``, the window as a boolean mask).  Bound: q, k, v read
+    and out written once; 4 D flops per unmasked (query, key) pair (q.k
+    and p.v) at the bf16 tensor-core rate.  The plain version is timed at
+    the first case.  Returns the first case's numbers, with every case
+    under ``cases``."""
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    res = {"ms": device_ms(lambda: ops.flash_attention(q, k, v), 20),
-           "plain_ms": device_ms(lambda: ref.flash_attention(q, k, v), 5),
-           # the nearest single PyTorch call; timed here, never used
-           "library_ms": device_ms(lambda: sdpa(qt, kt, vt, is_causal=True),
-                                   20),
-           **bound(nbytes, flops, BF16_FLOPS)}
-    call_ms = median_ms(lambda: ops.flash_attention(q, k, v), 20)
-    log(f"timing flash_attention {QWEN_ATTN} bf16 causal on {card}: kernel "
-        f"{res['ms']!r} ms (one call with its dispatch {call_ms!r} ms), "
-        f"bound {res['bound_ms']!r} ms ({res['bound_by']}, {nbytes} B, "
-        f"{flops} flop), plain {res['plain_ms']!r} ms, library (sdpa) "
-        f"{res['library_ms']!r} ms")
-    del q, k, v
+    cases = []
+    for shape, window in FLASH_TIMED:
+        b, s, h, kh, d = shape
+        q, k, v = flash_inputs(*shape, torch.bfloat16, seed=9)
+        nbytes = 2 * (2 * b * s * h * d + 2 * b * s * kh * d)
+        flops = 4 * d * b * h * flash_pairs(s, window)
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))  # (B, H, S, D)
+        qi = torch.arange(s, device="cuda")[:, None]
+        ki = torch.arange(s, device="cuda")[None, :]
+        mask = (ki <= qi) & (ki > qi - window) if window else None
+
+        def kernel():
+            return ops.flash_attention(q, k, v, window=window)
+
+        def library():      # the nearest single PyTorch call; never used
+            if mask is None:
+                return sdpa(qt, kt, vt, is_causal=True, enable_gqa=kh != h)
+            return sdpa(qt, kt, vt, attn_mask=mask, enable_gqa=kh != h)
+
+        res = {"shape": list(shape), "window": window,
+               "ms": device_ms(kernel, 20),
+               "library_ms": device_ms(library, 20),
+               **bound(nbytes, flops, BF16_FLOPS)}
+        if not cases:
+            res["plain_ms"] = device_ms(
+                lambda: ref.flash_attention(q, k, v), 5)
+        call_ms = median_ms(kernel, 20)
+        log(f"timing flash_attention {shape} bf16 causal window {window} "
+            f"on {card}: kernel {res['ms']!r} ms (one call with its "
+            f"dispatch {call_ms!r} ms), bound {res['bound_ms']!r} ms "
+            f"({res['bound_by']}, {nbytes} B, {flops} flop), plain "
+            f"{res.get('plain_ms', float('nan'))!r} ms, library (sdpa) "
+            f"{res['library_ms']!r} ms")
+        cases.append(res)
+        del q, k, v, qt, kt, vt
     torch.cuda.empty_cache()
+    first = {key: cases[0][key] for key in ("ms", "plain_ms", "library_ms",
+                                            "bound_ms", "bound_by")}
+    return {**first, "cases": cases}
+
+
+def tensor_core_resources() -> dict:
+    """Registers a thread, local memory and shared memory of each variant
+    of the tensor-core K3, from the CUDA runtime; raises on any local
+    memory (spills): the kernel must keep its accumulators in
+    registers."""
+    res = {"variant": flash.variant(torch.bfloat16, QWEN_ATTN[-1]),
+           "by_head_dim": {d: flash.tensor_core_attributes(d)
+                           for d in TC_HEAD_DIMS}}
+    log(f"tensor-core flash_attention: {res}")
+    if any(a["local_bytes"] for a in res["by_head_dim"].values()):
+        raise AssertionError(f"tensor-core flash_attention spills: {res}")
     return res
 
 
@@ -734,11 +828,13 @@ def compare_routes(cfg, params, batch, window: int, per_prefill: dict,
         out_k = steps["kernel"](params, batch)
         torch.cuda.synchronize()
         got = expect_launches(f"{label}, kernel route", per_prefill)
+        expect_variants(f"{label}, kernel route", cfg, per_prefill)
     with MoeInputs() as in_t:
         zero_launches()
         out_t = steps["torch"](params, batch)
         torch.cuda.synchronize()
         expect_launches(f"{label}, torch route", {})
+        expect_variants(f"{label}, torch route", cfg, {})
     if cfg.family == "moe":
         check_moe_layers(cfg, params, in_t, label)
         flips = routing_flips(cfg, params, in_k, in_t)
@@ -863,8 +959,9 @@ def check_replay_smoke() -> None:
         zero_launches()
         last = make_prefill_step(cfg)(params, {"tokens": toks})
         torch.cuda.synchronize()
-        expect_launches(f"{arch} smoke prefill", {
-            k: n * cfg.num_layers for k, n in per_layer.items()})
+        per_prefill = {k: n * cfg.num_layers for k, n in per_layer.items()}
+        expect_launches(f"{arch} smoke prefill", per_prefill)
+        expect_variants(f"{arch} smoke prefill", cfg, per_prefill)
         cache = tr.prefill_cache(params, cfg, toks[:, :-1], cache_len=12)
         dec, _ = tr.decode_step(params, cfg, toks[:, -1:], cache)
         diff = float((last - dec).abs().max())
@@ -895,8 +992,9 @@ def main() -> int:
     log(f"build: {time.perf_counter() - t0:.2f} s")
     for name, text in logs.items():
         for line in text.splitlines():
-            if "ptxas" in line:
+            if "ptxas" in line or "spill" in line:
                 log(f"  {name}: {line.strip()}")
+    tc_resources = tensor_core_resources()
 
     # 3. each kernel against its plain version (these launches don't count)
     max_err = check_fill_aggregate()
@@ -1052,7 +1150,7 @@ def main() -> int:
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:86",
         "launches": serve_launches["qwen1.5-0.5b"]["flash_attention"],
-        "max_abs_err": flash_err, **flash_timing,
+        "max_abs_err": flash_err, **flash_timing, **tc_resources,
     }, {
         "name": "ssd_scan", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",

@@ -2,10 +2,12 @@
 
 Each ``csrc/<name>.cu`` compiles with ``nvcc`` for ``sm_90a`` into a
 shared library with a plain C interface,
-``_build/<hash of source and flags>/lib<name>.so``, loaded with
-``ctypes``.  Nothing compiles when a module is imported.  ``build``
-starts one ``nvcc`` for each source that has no library yet, all
-together, and raises with the compiler's output if any fails.
+``_build/<hash of source, shared headers and flags>/lib<name>.so``,
+loaded with ``ctypes``.  The hash covers every ``csrc/*.cuh``, so an
+edited header rebuilds the libraries.  Nothing compiles when a module is
+imported.  ``build`` starts one ``nvcc`` for each source that has no
+library yet, all together, and raises with the compiler's output if any
+fails.
 """
 from __future__ import annotations
 
@@ -37,10 +39,11 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD / digest[:16] / f"lib{name}.so"
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD / h.hexdigest()[:16] / f"lib{name}.so"
 
 
 def build(names: Iterable[str]) -> Dict[str, str]:

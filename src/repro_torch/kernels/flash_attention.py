@@ -1,8 +1,16 @@
-"""Binding of the flash-attention CUDA kernel (``csrc/flash_attention.cu``).
+"""Binding of the flash-attention CUDA kernels (``csrc/flash_attention.cu``).
+
+Two kernels compute the same function.  ``variant`` picks one from the
+dtype and the head dim alone, never after an error: bf16 with D a
+multiple of 8 (and 16-byte aligned inputs, which TMA needs) runs the
+tensor-core kernel (``flash_attention_tc_fwd``: wgmma on TMA-fed
+shared-memory tiles); float32, the exact reference, and any other head
+dim run the CUDA-core kernel (``flash_attention_fwd``).
 
 ``launch`` takes tensors that ``ops.flash_attention`` has already
 checked, allocates the output, launches on the current stream of the
 tensors' device and raises on a launch error.  It does not synchronise.
+``VARIANT_LAUNCHES`` counts the launches of each kernel.
 """
 from __future__ import annotations
 
@@ -15,6 +23,17 @@ from repro_torch.kernels import build
 
 _LIB = None
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+VARIANT_LAUNCHES = {"tensor_core": 0, "cuda_core": 0}
+
+
+def variant(dtype: torch.dtype, head_dim: int, aligned: bool = True) -> str:
+    """The kernel that runs for inputs of ``dtype`` and head dim
+    ``head_dim``: "tensor_core" for bf16 with ``head_dim % 8 == 0`` (a
+    stride between heads TMA can describe) when every input starts on a
+    16-byte boundary (``aligned``), else "cuda_core"."""
+    if dtype == torch.bfloat16 and head_dim % 8 == 0 and aligned:
+        return "tensor_core"
+    return "cuda_core"
 
 
 def _lib() -> ctypes.CDLL:
@@ -25,10 +44,23 @@ def _lib() -> ctypes.CDLL:
             [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
             + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
         lib.flash_attention_fwd.restype = ctypes.c_int
+        lib.flash_attention_tc_fwd.argtypes = (
+            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
+            + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+        lib.flash_attention_tc_fwd.restype = ctypes.c_int
+        lib.flash_attention_tc_attributes.argtypes = (
+            [ctypes.c_int] + [ctypes.POINTER(ctypes.c_int)] * 3)
+        lib.flash_attention_tc_attributes.restype = ctypes.c_int
         lib.flash_attention_error_string.argtypes = [ctypes.c_int]
         lib.flash_attention_error_string.restype = ctypes.c_char_p
         _LIB = lib
     return _LIB
+
+
+def _check(lib, rc: int, what: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"flash_attention {what} failed: "
+                           + lib.flash_attention_error_string(rc).decode())
 
 
 def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -38,14 +70,34 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     lib = _lib()
     b, s, h, d = q.shape
     kh = k.shape[2]
+    aligned = all(t.data_ptr() % 16 == 0 for t in (q, k, v))
+    which = variant(q.dtype, d, aligned)
     with torch.cuda.device(q.device):
         out = torch.empty_like(q)
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = lib.flash_attention_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            _DTYPES[q.dtype], b, s, h, kh, d, 1.0 / math.sqrt(d),
-            int(causal), int(window), stream)
-    if rc != 0:
-        raise RuntimeError("flash_attention kernel launch failed: "
-                           + lib.flash_attention_error_string(rc).decode())
+        if which == "tensor_core":
+            rc = lib.flash_attention_tc_fwd(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                b, s, h, kh, d, 1.0 / math.sqrt(d), int(causal),
+                int(window), stream)
+        else:
+            rc = lib.flash_attention_fwd(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                _DTYPES[q.dtype], b, s, h, kh, d, 1.0 / math.sqrt(d),
+                int(causal), int(window), stream)
+    _check(lib, rc, f"{which} kernel launch")
+    VARIANT_LAUNCHES[which] += 1
     return out
+
+
+def tensor_core_attributes(head_dim: int) -> dict:
+    """Registers a thread at launch, local memory in bytes (spills) and
+    dynamic shared memory in bytes of the tensor-core kernel that
+    ``head_dim`` runs (builds the library if needed; needs a card)."""
+    lib = _lib()
+    regs, local, smem = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    _check(lib, lib.flash_attention_tc_attributes(
+        head_dim, ctypes.byref(regs), ctypes.byref(local),
+        ctypes.byref(smem)), "attribute query")
+    return {"registers": regs.value, "local_bytes": local.value,
+            "smem_bytes": smem.value}

@@ -1,10 +1,12 @@
 """repro_torch kernels: the plain versions of fill-aggregation, flash
 attention, the SSD chunk scan and the grouped expert GEMM against the
 JAX package (its pure-jnp oracles and its Pallas kernels in interpret
-mode), both Algorithm 3 routes, the wrappers' checks, and — on a CUDA
-card only — the hand-written kernels (fill-aggregation, int8 quantize
-and dequantize, flash attention, SSD chunk scan, expert GEMM) against
-their plain versions.
+mode), both Algorithm 3 routes, the wrappers' checks, flash attention's
+choice of kernel, the build's cache key, the split-P product of the
+tensor-core flash attention, and — on a CUDA card only — the
+hand-written kernels (fill-aggregation, int8 quantize and dequantize,
+flash attention on both its kernels, SSD chunk scan, expert GEMM)
+against their plain versions.
 
 Tolerances: float32 sums of at most 8 terms taken in another order, so
 1e-6 (rtol and atol) for the flat function; the tree routes add the
@@ -31,7 +33,8 @@ torch.set_num_threads(1)
 
 import numpy as np  # noqa: E402
 
-from repro_torch.kernels import ops, ref  # noqa: E402
+from repro_torch.kernels import build, ops, ref  # noqa: E402
+from repro_torch.kernels import flash_attention as flash  # noqa: E402
 
 TOL = 1e-6
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}    # atol: 5x
@@ -385,6 +388,58 @@ def test_int8_wrappers_reject_what_the_kernels_do_not_take(fn, case):
     assert ops.LAUNCHES[fn] == 0
 
 
+@pytest.mark.parametrize("dtype,d,aligned,expected", [
+    (torch.bfloat16, 64, True, "tensor_core"),
+    (torch.bfloat16, 80, True, "tensor_core"),
+    (torch.bfloat16, 128, True, "tensor_core"),
+    (torch.bfloat16, 256, True, "tensor_core"),
+    (torch.bfloat16, 36, True, "cuda_core"),       # heads not 16-byte apart
+    (torch.bfloat16, 64, False, "cuda_core"),      # TMA needs 16-byte bases
+    (torch.float32, 64, True, "cuda_core"),        # the exact reference
+    (torch.float32, 36, True, "cuda_core")])
+def test_flash_variant_is_chosen_by_dtype_and_head_dim(dtype, d, aligned,
+                                                       expected):
+    assert flash.variant(dtype, d, aligned) == expected
+
+
+def test_library_path_covers_the_shared_headers(tmp_path, monkeypatch):
+    """An edited ``csrc/*.cuh`` gives every kernel a new build directory,
+    so no stale library is loaded; unchanged sources keep theirs."""
+    import shutil
+    csrc = tmp_path / "csrc"
+    shutil.copytree(build.CSRC, csrc)
+    monkeypatch.setattr(build, "CSRC", csrc)
+    names = [p.stem for p in sorted(csrc.glob("*.cu"))]
+    before = {n: build.library_path(n) for n in names}
+    assert build.library_path("flash_attention") == before["flash_attention"]
+    header = csrc / "hopper.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    after = {n: build.library_path(n) for n in names}
+    assert all(after[n] != before[n] for n in names)
+    (csrc / "extra.cuh").write_text("#pragma once\n")
+    assert build.library_path("flash_attention") != after["flash_attention"]
+
+
+def test_split_p_keeps_the_float32_product():
+    """The tensor-core K3 multiplies P (float32 softmax weights) by V as
+    two bf16 products, P_hi = bf16(p) and P_lo = bf16(p - P_hi), into one
+    float32 sum.  Emulated here at qwen's head dim (64) over 1024 keys:
+    within 2^-14 of the largest output of the float32 product, where one
+    bf16 P (rounded once more than the TPU kernel's float32 p) is not."""
+    rng = np.random.default_rng(0)
+    scores = torch.from_numpy(rng.normal(size=(64, 1024)) * 3)
+    p = torch.exp(scores - scores.max(dim=1, keepdim=True).values).float()
+    v = torch.from_numpy(rng.normal(size=(1024, 64))).float()
+    v = v.bfloat16().float()                # V arrives in bf16
+    exact = p.double() @ v.double()
+    hi = p.bfloat16().float()
+    lo = (p - hi).bfloat16().float()
+    split = hi @ v + lo @ v                 # float32 sums of exact products
+    scale = float(exact.abs().max())
+    assert float((split.double() - exact).abs().max()) <= 2 ** -14 * scale
+    assert float(((hi @ v).double() - exact).abs().max()) > 2 ** -14 * scale
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
@@ -442,22 +497,46 @@ def test_cuda_int8_kernels_match_plain_version(cuda, p):
     (2, 100, 4, 2, 64),          # one ragged tile
     (1, 256, 4, 4, 80),          # zamba2's head dim
     (1, 128, 2, 1, 256),         # the largest head dim
-    (4, 1024, 16, 16, 64)])      # qwen1.5-0.5b's prefill
+    (4, 1024, 16, 16, 64),       # qwen1.5-0.5b's prefill
+    (4, 1024, 16, 8, 64),        # granite-moe-1b-a400m's prefill (GQA)
+    (1, 256, 4, 2, 36)])         # D % 8 != 0: the CUDA-core kernel in bf16
 @pytest.mark.parametrize("causal,window", MASKS + [(True, 256), (False, 64)])
 def test_cuda_flash_attention_matches_plain_version(cuda, dtype, b, s, h, kh,
                                                     d, causal, window):
     q, k, v = (torch.from_numpy(a).to(cuda, getattr(torch, dtype))
                for a in flash_np(b, s, h, kh, d, seed=s))
     before = ops.LAUNCHES["flash_attention"]
+    variants = dict(flash.VARIANT_LAUNCHES)
     out = ops.flash_attention(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
     assert ops.LAUNCHES["flash_attention"] == before + 1
+    which = ("tensor_core" if dtype == "bfloat16" and d % 8 == 0
+             else "cuda_core")
+    assert {n: flash.VARIANT_LAUNCHES[n] - variants[n] for n in variants} \
+        == {**dict.fromkeys(variants, 0), which: 1}
     assert out.dtype == q.dtype and out.shape == q.shape
     rtol, atol = KERNEL_FLASH_TOL[dtype]
     torch.testing.assert_close(
         out.float(), ref.flash_attention(q, k, v, causal=causal,
                                          window=window).float(),
         rtol=rtol, atol=atol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,h,kh,d", [(4, 1024, 16, 8, 64),
+                                         (1, 256, 4, 2, 128)])
+def test_cuda_flash_attention_tensor_core_repeats_bit_for_bit(cuda, b, s, h,
+                                                              kh, d):
+    """The tensor-core kernel sums in a fixed order (no atomics): the same
+    bf16 call twice gives the same bits."""
+    q, k, v = (torch.from_numpy(a).to(cuda, torch.bfloat16)
+               for a in flash_np(b, s, h, kh, d, seed=7))
+    before = flash.VARIANT_LAUNCHES["tensor_core"]
+    first = ops.flash_attention(q, k, v, window=256)
+    second = ops.flash_attention(q, k, v, window=256)
+    torch.cuda.synchronize()
+    assert flash.VARIANT_LAUNCHES["tensor_core"] == before + 2
+    assert torch.equal(first.view(torch.int16), second.view(torch.int16))
 
 
 @pytest.mark.cuda
