@@ -11,8 +11,8 @@ Phases, each fatal on failure:
 2. build: every CUDA kernel of the main path, from ``csrc/`` with nvcc,
    one nvcc per source, all started together (ptxas's report of
    registers and spills logged); the tensor-core flash attention's
-   registers, local and shared memory per variant, with no local memory
-   (no spill);
+   registers, local and shared memory per variant, and the tensor-core
+   expert GEMM's, with no local memory (no spill);
 3. check: each kernel against its plain PyTorch version on the card, at
    the main path's shapes and at ragged ones: fill-aggregation within
    rtol = atol = 1e-6, int8 quantize/dequantize bit for bit (exact ties,
@@ -54,21 +54,25 @@ Phases, each fatal on failure:
    atol = 2e-4);
    K5 in float32 and bfloat16 at the JAX sweep's shapes, ragged C = 8,
    100 and 1256 (F 72, D 200), granite-moe-1b-a400m's prefill (wi/wg
-   and wo) and decode shapes, after dividing by the output's largest
-   magnitude (rtol = atol = 1e-5 in float32, 2^-7 / 1e-3 in bfloat16),
-   and ``ops.expert_ffn`` (three K5 launches) against the einsum
-   ``moe.expert_ffn`` at granite's prefill shape; each timed at its
-   serving shape beside its bound and its plain version, K3 also beside
-   ``scaled_dot_product_attention`` (at qwen's and granite's shapes and
-   at window 256) and K5 beside ``torch.bmm``;
+   and wo) and decode shapes, and (2, 64, 100, 70), whose rows TMA
+   cannot describe, after dividing by the output's largest magnitude
+   (rtol = atol = 1e-5 in float32, 2^-7 / 1e-3 in bfloat16), each call
+   on the kernel its dtype and shape select (bf16 with D and F multiples
+   of 8: the tensor-core kernel; other bf16: the mma.sync kernel;
+   float32: the CUDA-core kernel), and ``ops.expert_ffn`` (three K5
+   launches) against the einsum ``moe.expert_ffn`` at granite's prefill
+   shape; each timed at its serving shape beside its bound and its plain
+   version, K3 also beside ``scaled_dot_product_attention`` (at qwen's
+   and granite's shapes and at window 256) and K5 beside ``torch.bmm``
+   (at granite's wi and wo shapes);
 10. the serving path at full width, bf16, seeded random weights on the
    card, 4 requests: for qwen1.5-0.5b (1024-token prompt; also with
    window 256), mamba2-780m (1000-token prompt: chunk padding) and
    granite-moe-1b-a400m (1024-token prompt; also with window 256),
    ``make_prefill_step`` on the kernel route (launch counts zeroed
    before and read after: per layer one K3, one K4, or one K3 and three
-   K5; every K3 of a bf16 prefill on the tensor-core kernel, of a
-   float32 one on the CUDA-core kernel) against the torch route, within
+   K5; every K3 and K5 of a bf16 prefill on its tensor-core kernel, of a
+   float32 one on its CUDA-core kernel) against the torch route, within
    LOGIT_TOL of the logits' largest
    magnitude (15 % in bf16; 0.1 % in a float32 prefill at the same
    widths and depth).  For granite also: every MoE layer's input from
@@ -113,6 +117,7 @@ from repro_torch.comm.quantize import leaf_scale  # noqa: E402
 from repro_torch.engine import FedAvgBaseline, FedEngine, OfflineNas, \
     RunConfig  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
+from repro_torch.kernels import expert_gemm as egemm  # noqa: E402
 from repro_torch.kernels import flash_attention as flash  # noqa: E402
 from repro_torch.launch.serve import greedy_generate, make_decode_step, \
     make_prefill_step  # noqa: E402
@@ -356,7 +361,8 @@ def time_roundtrip(card: str, api) -> dict:
 
 
 def zero_launches() -> None:
-    for counts in (ops.LAUNCHES, flash.VARIANT_LAUNCHES):
+    for counts in (ops.LAUNCHES, flash.VARIANT_LAUNCHES,
+                   egemm.VARIANT_LAUNCHES):
         for k in counts:
             counts[k] = 0
 
@@ -373,18 +379,21 @@ def expect_launches(label: str, expected: dict) -> dict:
 
 
 def expect_variants(label: str, cfg, per_prefill: dict) -> None:
-    """The K3 launches of one prefill by kernel: all on the tensor-core
-    kernel in bf16 (every config's head dim is a multiple of 8), all on
-    the CUDA-core kernel in float32."""
-    n = per_prefill.get("flash_attention", 0)
+    """The K3 and K5 launches of one prefill by kernel: all on the
+    tensor-core kernels in bf16 (every config's head dim and expert
+    widths are multiples of 8), all on the CUDA-core kernels in
+    float32."""
     which = "tensor_core" if cfg.torch_dtype == torch.bfloat16 \
         else "cuda_core"
-    expected = {**dict.fromkeys(flash.VARIANT_LAUNCHES, 0), which: n}
-    got = dict(flash.VARIANT_LAUNCHES)
-    log(f"{label} flash_attention launches by kernel: {got}")
-    if got != expected:
-        raise AssertionError(f"{label}: flash_attention kernels {got}, "
-                             f"expected {expected}")
+    for name, counts in (("flash_attention", flash.VARIANT_LAUNCHES),
+                         ("expert_gemm", egemm.VARIANT_LAUNCHES)):
+        n = per_prefill.get(name, 0)
+        expected = {**dict.fromkeys(counts, 0), which: n}
+        got = dict(counts)
+        log(f"{label} {name} launches by kernel: {got}")
+        if got != expected:
+            raise AssertionError(f"{label}: {name} kernels {got}, "
+                                 f"expected {expected}")
 
 
 def full_width_clients():
@@ -479,9 +488,11 @@ REPLAY_TOL = 1e-3       # smoke size, float32: prefill vs decode replay
 GEMM_TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (2 ** -7, 1e-3)}
 GRANITE_WI = (32, 1280, 1024, 512)      # E, C, D, F: 4 x 1024 tokens, top 8
 GRANITE_WO = (32, 1280, 512, 1024)
+# (2, 64, 100, 70): rows of 200 and 140 bytes, which TMA cannot describe,
+# so bf16 takes the mma.sync kernel
 GEMM_CASES = [(2, 128, 256, 128), (4, 256, 256, 384), (1, 128, 512, 256),
               (2, 8, 200, 72), (2, 100, 200, 72), (2, 1256, 200, 72),
-              GRANITE_WI, GRANITE_WO, (32, 8, 1024, 512)]
+              GRANITE_WI, GRANITE_WO, (32, 8, 1024, 512), (2, 64, 100, 70)]
 # a MoE layer on both routes from one input chains three K5 products
 # (wi and wg, then wo), each allowed one rounding apart
 MOE_DEPTH = 3
@@ -680,19 +691,28 @@ def scaled_gap(out, plain, rtol, atol, label) -> float:
 
 
 def check_expert_gemm() -> float:
+    """K5 against its plain version at every case, in float32 and bf16;
+    each call must run the one kernel ``egemm.variant`` names for its
+    dtype and shape (all inputs here are 16-byte aligned)."""
     worst = 0.0
     for dtype in (torch.float32, torch.bfloat16):
         rtol, atol = GEMM_TOL[dtype]
         for i, shape in enumerate(GEMM_CASES):
             x, w = gemm_inputs(*shape, dtype, seed=400 + i)
+            which = egemm.variant(dtype, shape[2], shape[3])
+            before = dict(egemm.VARIANT_LAUNCHES)
             out = ops.expert_gemm(x, w)
             torch.cuda.synchronize()
+            ran = {n: egemm.VARIANT_LAUNCHES[n] - before[n] for n in before}
+            if ran != {**dict.fromkeys(before, 0), which: 1}:
+                raise AssertionError(f"expert_gemm {shape} {dtype}: ran "
+                                     f"{ran}, expected one {which} launch")
             if out.shape != shape[:2] + shape[3:] or out.dtype != dtype:
                 raise AssertionError(f"expert_gemm {shape}: output "
                                      f"{tuple(out.shape)} {out.dtype}")
             worst = max(worst, scaled_gap(
                 out, ref.expert_gemm(x, w), rtol, atol,
-                f"expert_gemm {str(dtype)[6:]} {shape}"))
+                f"expert_gemm {str(dtype)[6:]} {shape} ({which})"))
             del x, w, out
     torch.cuda.empty_cache()
     return worst
@@ -722,32 +742,50 @@ def check_expert_ffn() -> None:
 
 
 def time_expert_gemm(card: str) -> dict:
-    """K5 at granite's wi shape, bf16 (and, logged, float32).  Bound: x
-    and w read and out written once; 2 E C D F operations at the
-    tensor-core rate of the inputs' type (bf16), or the float32 CUDA-core
-    rate (float32: the TPU kernel's contract has no TF32)."""
-    e, c, d, f = GRANITE_WI
+    """K5 at granite's wi and wo shapes, bf16 (and, logged, float32), each
+    beside ``torch.bmm``.  Bound: x and w read and out written once; 2 E
+    C D F operations at the tensor-core rate of the inputs' type (bf16),
+    or the float32 CUDA-core rate (float32: the TPU kernel's contract has
+    no TF32).  Returns the
+    bf16 wi shape's numbers, with the wo shape's under ``wo``."""
     res = {}
-    for dtype, peak in ((torch.bfloat16, BF16_FLOPS),
-                        (torch.float32, FP32_FLOPS)):
-        x, w = gemm_inputs(*GRANITE_WI, dtype, seed=11)
-        nbytes = x.element_size() * (e * c * d + e * d * f + e * c * f)
-        flops = 2 * e * c * d * f
-        r = {"ms": device_ms(lambda: ops.expert_gemm(x, w), 20),
-             "plain_ms": device_ms(lambda: ref.expert_gemm(x, w), 5),
-             # the nearest single PyTorch call; timed here, never used
-             "library_ms": device_ms(lambda: torch.bmm(x, w), 20),
-             **bound(nbytes, flops, peak)}
-        call_ms = median_ms(lambda: ops.expert_gemm(x, w), 20)
-        log(f"timing expert_gemm {GRANITE_WI} {str(dtype)[6:]} on {card}: "
-            f"kernel {r['ms']!r} ms (one call with its dispatch "
-            f"{call_ms!r} ms), bound {r['bound_ms']!r} ms ({r['bound_by']}, "
-            f"{nbytes} B, {flops} flop), plain {r['plain_ms']!r} ms, "
-            f"library (torch.bmm) {r['library_ms']!r} ms")
-        res[dtype] = r
-        del x, w
+    for shape in (GRANITE_WI, GRANITE_WO):
+        e, c, d, f = shape
+        for dtype, peak in ((torch.bfloat16, BF16_FLOPS),
+                            (torch.float32, FP32_FLOPS)):
+            x, w = gemm_inputs(*shape, dtype, seed=11)
+            nbytes = x.element_size() * (e * c * d + e * d * f + e * c * f)
+            flops = 2 * e * c * d * f
+            r = {"ms": device_ms(lambda: ops.expert_gemm(x, w), 20),
+                 "plain_ms": device_ms(lambda: ref.expert_gemm(x, w), 5),
+                 # the nearest single PyTorch call; timed here, never used
+                 "library_ms": device_ms(lambda: torch.bmm(x, w), 20),
+                 **bound(nbytes, flops, peak)}
+            call_ms = median_ms(lambda: ops.expert_gemm(x, w), 20)
+            which = egemm.variant(dtype, d, f)
+            log(f"timing expert_gemm {shape} {str(dtype)[6:]} ({which}) on "
+                f"{card}: kernel {r['ms']!r} ms (one call with its dispatch "
+                f"{call_ms!r} ms), bound {r['bound_ms']!r} ms "
+                f"({r['bound_by']}, {nbytes} B, {flops} flop), plain "
+                f"{r['plain_ms']!r} ms, library (torch.bmm) "
+                f"{r['library_ms']!r} ms")
+            res[shape, dtype] = r
+            del x, w
     torch.cuda.empty_cache()
-    return res[torch.bfloat16]
+    return {**res[GRANITE_WI, torch.bfloat16],
+            "wo": res[GRANITE_WO, torch.bfloat16]}
+
+
+def expert_gemm_resources() -> dict:
+    """Registers a thread, local memory and shared memory of the
+    tensor-core K5, from the CUDA runtime; raises on any local memory
+    (spills)."""
+    res = {"variant": egemm.variant(torch.bfloat16, *GRANITE_WI[2:]),
+           **egemm.tensor_core_attributes()}
+    log(f"tensor-core expert_gemm: {res}")
+    if res["local_bytes"]:
+        raise AssertionError(f"tensor-core expert_gemm spills: {res}")
+    return res
 
 
 class MoeInputs:
@@ -995,6 +1033,7 @@ def main() -> int:
             if "ptxas" in line or "spill" in line:
                 log(f"  {name}: {line.strip()}")
     tc_resources = tensor_core_resources()
+    gemm_resources = expert_gemm_resources()
 
     # 3. each kernel against its plain version (these launches don't count)
     max_err = check_fill_aggregate()
@@ -1162,7 +1201,7 @@ def main() -> int:
         "source": "src/repro_torch/kernels/csrc/expert_gemm.cu",
         "replaces": "src/repro/kernels/expert_gemm.py:38",
         "launches": serve_launches["granite-moe-1b-a400m"]["expert_gemm"],
-        "max_abs_err": gemm_err, **gemm_timing,
+        "max_abs_err": gemm_err, **gemm_timing, **gemm_resources,
     }]
     if any(not math.isfinite(k[f]) for k in kernels
            for f in ("ms", "plain_ms", "bound_ms")):

@@ -1,4 +1,4 @@
-// Grouped (per-expert) GEMM for Hopper (sm_90a).
+// Grouped (per-expert) GEMM for Hopper (sm_90a): three kernels.
 //
 // Replaces the Pallas TPU kernel repro/kernels/expert_gemm.py::expert_gemm:
 //
@@ -7,8 +7,16 @@
 // the compute core of the MoE layer after dispatch (three calls per layer:
 // wi, wg, then wo on silu(g) * h).  float32 or bfloat16 in, both of one
 // type; sums in float32, the output written in x's type, rounded once.  Any
-// C, D and F >= 1: ragged tiles are masked (the TPU kernel asserts that
-// its blocks divide the shape), and every offset is 64-bit.
+// C, D and F >= 1: ragged tiles are masked or zero-filled (the TPU kernel
+// asserts that its blocks divide the shape), and every offset is 64-bit.
+// The caller (kernels/expert_gemm.py::variant) picks the kernel from the
+// dtype, D, F and the pointers' alignment:
+//
+//   - bf16, D and F multiples of 8, x, w and out 16-byte aligned (every
+//     config's expert shapes): the tensor-core kernel (expert_gemm_tc_fwd);
+//   - bf16 otherwise (TMA needs 16-byte strides and bases): the mma.sync
+//     kernel (expert_gemm_fwd, dtype 1);
+//   - float32: the CUDA-core kernel (expert_gemm_fwd, dtype 0).
 //
 // What bounds it on this card: at granite-moe-1b-a400m's prefill shape (E
 // 32, C 1280 slots, D 1024, F 512, bf16) one call moves 159.4 MB (47.6 us
@@ -18,25 +26,51 @@
 // kernel's contract is float32 products, so no TF32).
 //
 // Design.  On the TPU the contraction axis is a sequential grid axis with a
-// (bc, bf) float32 accumulator in VMEM scratch.  Here one block of 256
-// threads owns one (expert, 128 x 128 output tile) and walks D itself in
-// steps of 32, the accumulator in registers.  The x and w tiles of a step
-// are fetched with 16-byte global loads into registers while the block
+// (bc, bf) float32 accumulator in VMEM scratch.  Here a block owns output
+// tiles and walks D itself, the accumulator in registers.
+//
+// Tensor-core kernel (bf16).  A persistent grid, one block of three
+// warpgroups per SM, walks the (expert, 128-row, 128-column) output tiles
+// with the expert as the slowest axis, so the blocks in flight share the
+// x rows and w columns of one or two experts in L2 (one block per tile
+// took 24 % longer at granite's wi shape: a tail, and a prologue per
+// tile).  One thread of the producer warpgroup (which gives its registers
+// away with setmaxnreg) loads each 64-deep contraction step of a tile by
+// TMA with 128-byte swizzle into a ring of five stages, each with a
+// "full" and an "empty" mbarrier: x as the K-major A operand (a map over
+// (D, C, E) in boxes of 64 x 128 rows), w as the MN-major B operand, read
+// in place (a map over (F, D, E) in boxes of 64 columns x 64 rows, two
+// boxes a step).  TMA fills whatever lies outside the tensor with zeros,
+// so ragged C, F and D need no masking in the main loop.  Two consumer
+// warpgroups own 64 rows each; per stage each issues four wgmma
+// m64n128k16 (A and B from shared memory; the product of two bf16 values
+// is exact in fp32, so the TPU kernel's contract holds), waits until at
+// most this step's group is in flight and releases the previous stage.
+// The 64 x 128 fp32 accumulator is 64 registers a consumer thread (tiles
+// of 256 columns timed the same at granite's shapes and pad a ragged F
+// twice as far).  The epilogue rounds the accumulator to bf16 once,
+// stages it in the warpgroup's own buffer (in TMA's swizzle) and writes
+// it with TMA stores, which clip rows >= C and columns >= F; the next
+// tile's loads are already in flight meanwhile.  No atomics: the order of
+// every sum is fixed, and a call repeats bit for bit.
+//
+// CUDA-core and mma.sync kernels (float32, and bf16 that TMA cannot
+// describe).  One block of 256 threads owns one (expert, 128 x 128 output
+// tile) and walks D in steps of 32.  The x and w tiles of a step are
+// fetched with 16-byte global loads into registers while the block
 // computes on the previous step's tiles in shared memory, then stored
-// (software prefetch; no cp.async or TMA yet).  A chunk that runs past D or
-// F, or rows whose length is not a multiple of 16 bytes, are read one
-// element at a time and padded with zeros.
+// (software prefetch).  A chunk that runs past D or F, or rows whose
+// length is not a multiple of 16 bytes, are read one element at a time
+// and padded with zeros.
 //
 // - float32: the x tile is stored transposed (k-major), so each thread
 //   reads 4 + 4 rows and 4 + 4 columns with four 16-byte shared-memory
 //   loads per k and keeps an 8 x 8 register tile (64 FMAs per k).
 // - bfloat16: mma.sync m16n8k16 (bf16 x bf16 -> fp32) on the tensor cores.
-//   A product of two bf16 values is exact in fp32, so this keeps the TPU
-//   kernel's contract.  Eight warps as 2 x 4, each a 64 x 32 warp tile of
-//   4 x 4 fragments; fragments are read with ldmatrix (the w tile with
-//   .trans), rows padded by 16 bytes so that the eight row addresses of
-//   each 8 x 8 matrix fall in distinct banks.  wgmma, TMA and a multi-stage
-//   pipeline are later work.
+//   Eight warps as 2 x 4, each a 64 x 32 warp tile of 4 x 4 fragments;
+//   fragments are read with ldmatrix (the w tile with .trans), rows padded
+//   by 16 bytes so that the eight row addresses of each 8 x 8 matrix fall
+//   in distinct banks.
 //
 // Plain C interface, loaded with ctypes: launches on the caller's stream,
 // does not synchronise, allocates nothing, and returns cudaGetLastError().
@@ -44,6 +78,8 @@
 #include <cstdint>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -351,6 +387,245 @@ bool aligned16(const void* p) {
 
 }  // namespace
 
+// ---------------------------------------------------------------------------
+// bfloat16 on wgmma: TMA ring, producer warpgroup, persistent grid
+// ---------------------------------------------------------------------------
+
+namespace tc {
+
+constexpr int kBM = 128;          // output rows per tile: two warpgroups of 64
+constexpr int kWG = 64;           // rows per consumer warpgroup
+constexpr int kBN = 128;          // output columns per tile
+constexpr int kBK = 64;           // contraction step: one 128-byte row of bf16
+constexpr int kBox = 64;          // columns per TMA box
+constexpr int kNB = kBN / kBox;   // w boxes a step, output boxes a tile
+constexpr int kStages = 5;
+constexpr int kRowBytes = 128;    // one box row
+constexpr int kConsumers = 256;
+constexpr int kThreads = kConsumers + 128;
+// ptxas sizes every role's code within 65536 / 384 = 168 registers a
+// thread (the entry count); setmaxnreg moves the producer's to the
+// consumers: 24 + 2 x 240 = 3 x 168
+constexpr int kProducerRegs = 24;
+constexpr int kConsumerRegs = 240;
+
+// Shared memory of one block, from a 1024-byte boundary: five 32 KB
+// stages of [x box (128 rows x 128 B) | two w boxes (64 rows x 128 B)],
+// then the two warpgroups' output buffers (two boxes of 64 rows x 128 B
+// each), then the mbarriers full[kStages], empty[kStages]: 197,712 bytes
+// with the alignment slack.  Every box starts on a 1024-byte boundary, as
+// the 128-byte swizzle needs.
+struct Layout {
+  static constexpr uint32_t a_bytes = kBM * kRowBytes;
+  static constexpr uint32_t b_box = kBK * kRowBytes;
+  static constexpr uint32_t stage = a_bytes + kNB * b_box;
+  static constexpr uint32_t out_box = kWG * kRowBytes;
+  static constexpr uint32_t out_wg = kNB * out_box;
+  static constexpr uint32_t out_off = kStages * stage;
+  static constexpr uint32_t bar_off = out_off + 2 * out_wg;
+  static constexpr uint32_t bytes = bar_off + 16 * kStages
+      + 1024;                                  // slack for the alignment
+};
+constexpr int kSmem = static_cast<int>(Layout::bytes);
+
+// tile t -> expert, first row, first column; the column tile is the
+// fastest axis and the expert the slowest
+__device__ __forceinline__ void tile_coords(int t, int tiles_m, int tiles_n,
+                                            int& e, int& m0, int& n0) {
+  const int per_e = tiles_m * tiles_n;
+  e = t / per_e;
+  const int r = t - e * per_e;
+  m0 = (r / tiles_n) * kBM;
+  n0 = (r % tiles_n) * kBN;
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+gemm_tc(const __grid_constant__ CUtensorMap tm_x,
+        const __grid_constant__ CUtensorMap tm_w,
+        const __grid_constant__ CUtensorMap tm_out, int E, int C, int D,
+        int F) {
+  using L = Layout;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = hopper::smem_u32(smem_raw);
+  const uint32_t pad = ((raw + 1023u) & ~1023u) - raw;
+  uint8_t* smem = smem_raw + pad;
+  const uint32_t base = raw + pad;
+  const uint32_t full_bar = base + L::bar_off;
+  const uint32_t empty_bar = full_bar + 8 * kStages;
+
+  const int tiles_m = (C + kBM - 1) / kBM;
+  const int tiles_n = (F + kBN - 1) / kBN;
+  const int tiles = E * tiles_m * tiles_n;
+  const int nk = (D + kBK - 1) / kBK;
+
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < kStages; ++st) {
+      hopper::mbar_init(full_bar + 8 * st, 1);
+      hopper::mbar_init(empty_bar + 8 * st, kConsumers);
+    }
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+
+  // the warpgroup, as a value the compiler can see is uniform in a warp
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+  if (wg == 2) {
+    // ---- producer warpgroup: one thread keeps the ring full
+    hopper::reg_dealloc<kProducerRegs>();
+    if (threadIdx.x == kConsumers) {
+      hopper::tma_prefetch_map(&tm_x);
+      hopper::tma_prefetch_map(&tm_w);
+      int st = 0;
+      uint32_t phase = 0;
+      for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+        int e, m0, n0;
+        tile_coords(t, tiles_m, tiles_n, e, m0, n0);
+        for (int i = 0; i < nk; ++i) {
+          const uint32_t full = full_bar + 8 * st;
+          const uint32_t dst = base + st * L::stage;
+          hopper::mbar_wait(empty_bar + 8 * st, phase ^ 1);
+          hopper::mbar_arrive_expect_tx(full, L::stage);
+          hopper::tma_load_4d(dst, &tm_x, full, i * kBK, m0, e, 0);
+#pragma unroll
+          for (int c = 0; c < kNB; ++c)
+            hopper::tma_load_4d(dst + L::a_bytes + c * L::b_box, &tm_w, full,
+                                n0 + c * kBox, i * kBK, e, 0);
+          if (++st == kStages) {
+            st = 0;
+            phase ^= 1;
+          }
+        }
+      }
+    }
+  } else {
+    // ---- consumer warpgroups: rows 64 wg .. 64 wg + 63 of each tile
+    hopper::reg_alloc<kConsumerRegs>();
+    const int tid = threadIdx.x % 128;
+    const int warp = tid / 32;
+    const int lane = tid % 32;
+    const uint32_t out_s = base + L::out_off + wg * L::out_wg;
+    uint8_t* out_tile = smem + L::out_off + wg * L::out_wg;
+    // this thread's accumulator rows rl and rl + 8 of the warpgroup's 64;
+    // both have the swizzle phase rl % 8
+    const int rl = 16 * warp + lane / 4;
+    const int sw = rl & 7;
+    int st = 0;
+    uint32_t phase = 0;
+    float acc[kBN / 2];         // each tile's first product overwrites it
+#pragma unroll
+    for (int e2 = 0; e2 < kBN / 2; ++e2) acc[e2] = 0.0f;
+    for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+      int e, m0, n0;
+      tile_coords(t, tiles_m, tiles_n, e, m0, n0);
+      int prev = 0;
+      for (int i = 0; i < nk; ++i) {
+        hopper::mbar_wait(full_bar + 8 * st, phase);
+        const uint32_t a_s = base + st * L::stage + wg * kWG * kRowBytes;
+        const uint32_t b_s = base + st * L::stage + L::a_bytes;
+        const uint64_t ad = hopper::opaque(hopper::desc_sw128(a_s, 16, 1024));
+        const uint64_t bd = hopper::opaque(
+            hopper::desc_sw128(b_s, L::b_box, 1024));
+#pragma unroll
+        for (int e2 = 0; e2 < kBN / 2; ++e2) hopper::fence_operand(acc[e2]);
+        hopper::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < kBK / 16; ++kk)
+          hopper::wgmma_m64n128k16_ss_tb(
+              acc, hopper::desc_add(ad, kk * 32),
+              hopper::desc_add(bd, kk * 16 * kRowBytes), i > 0 || kk > 0);
+        hopper::wgmma_commit();
+        hopper::wgmma_wait<1>();          // the previous step's products
+#pragma unroll
+        for (int e2 = 0; e2 < kBN / 2; ++e2) hopper::fence_operand(acc[e2]);
+        if (i > 0) hopper::mbar_arrive(empty_bar + 8 * prev);
+        prev = st;
+        if (++st == kStages) {
+          st = 0;
+          phase ^= 1;
+        }
+      }
+      hopper::wgmma_wait<0>();
+#pragma unroll
+      for (int e2 = 0; e2 < kBN / 2; ++e2) hopper::fence_operand(acc[e2]);
+      hopper::mbar_arrive(empty_bar + 8 * prev);
+
+      // epilogue: once the previous tile's stores have read the buffer,
+      // round once to bf16 into it (chunk j of row r at j ^ (r % 8), as
+      // the output map's swizzle reads it), then one TMA store a box of
+      // 64 columns, clipped to C and F by the map
+      const int row0 = m0 + wg * kWG;
+      if (tid == 0) hopper::tma_store_wait_read<0>();
+      hopper::named_bar_sync(1 + wg, 128);
+#pragma unroll
+      for (int j = 0; j < kBN / 8; ++j) {
+        uint8_t* chunk = out_tile + (j / 8) * L::out_box
+            + (((j % 8) ^ sw) * 16) + (lane % 4) * 4;
+        const __nv_bfloat162 lo = __floats2bfloat162_rn(acc[4 * j],
+                                                        acc[4 * j + 1]);
+        const __nv_bfloat162 hi = __floats2bfloat162_rn(acc[4 * j + 2],
+                                                        acc[4 * j + 3]);
+        *reinterpret_cast<__nv_bfloat162*>(chunk + rl * kRowBytes) = lo;
+        *reinterpret_cast<__nv_bfloat162*>(chunk + (rl + 8) * kRowBytes) =
+            hi;
+      }
+      hopper::fence_proxy_async_smem();
+      hopper::named_bar_sync(1 + wg, 128);
+      if (tid == 0 && row0 < C) {
+#pragma unroll
+        for (int c = 0; c < kNB; ++c)
+          if (n0 + c * kBox < F)
+            hopper::tma_store_4d(&tm_out, out_s + c * L::out_box,
+                                 n0 + c * kBox, row0, e, 0);
+        hopper::tma_store_commit();
+      }
+    }
+    if (tid == 0) hopper::tma_store_wait<0>();
+  }
+}
+
+int sm_count() {
+  static int count[64] = {0};
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return 0;
+  if (count[dev] == 0)
+    cudaDeviceGetAttribute(&count[dev], cudaDevAttrMultiProcessorCount, dev);
+  return count[dev];
+}
+
+// one block per SM (at most one per tile) walks the tiles
+int launch(const void* x, const void* w, void* out, int E, int C, int D,
+           int F, cudaStream_t stream) {
+  // x, w and out as 4-D tensors (innermost first, a unit axis last)
+  CUtensorMap tx, tw, to;
+  const uint64_t dx[4] = {static_cast<uint64_t>(D), static_cast<uint64_t>(C),
+                          static_cast<uint64_t>(E), 1};
+  const uint64_t dw[4] = {static_cast<uint64_t>(F), static_cast<uint64_t>(D),
+                          static_cast<uint64_t>(E), 1};
+  const uint64_t dout[4] = {static_cast<uint64_t>(F),
+                            static_cast<uint64_t>(C),
+                            static_cast<uint64_t>(E), 1};
+  const uint32_t box_x[4] = {kBK, kBM, 1, 1};
+  const uint32_t box_w[4] = {kBox, kBK, 1, 1};
+  const uint32_t box_out[4] = {kBox, kWG, 1, 1};
+  int rc = hopper::encode_tensor_map_bf16(&tx, x, 4, dx, box_x);
+  if (rc == 0) rc = hopper::encode_tensor_map_bf16(&tw, w, 4, dw, box_w);
+  if (rc == 0) rc = hopper::encode_tensor_map_bf16(&to, out, 4, dout, box_out);
+  if (rc != 0) return rc;
+  cudaError_t err = cudaFuncSetAttribute(
+      gemm_tc, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int64_t tiles = static_cast<int64_t>(E) * ((C + kBM - 1) / kBM)
+      * ((F + kBN - 1) / kBN);
+  if (tiles > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
+  const int sms = sm_count();
+  if (sms <= 0) return static_cast<int>(cudaErrorInvalidDevice);
+  const int blocks = tiles < sms ? static_cast<int>(tiles) : sms;
+  gemm_tc<<<blocks, kThreads, kSmem, stream>>>(tx, tw, to, E, C, D, F);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace tc
+
 // dtype: 0 = float32, 1 = bfloat16.  x: (E, C, D); w: (E, D, F); out:
 // (E, C, F); contiguous, all of one dtype.
 extern "C" int expert_gemm_fwd(const void* x, const void* w, void* out,
@@ -382,4 +657,29 @@ extern "C" int expert_gemm_fwd(const void* x, const void* w, void* out,
 
 extern "C" const char* expert_gemm_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+// bf16 only; D % 8 == 0, F % 8 == 0; x, w and out 16-byte aligned.  x: (E,
+// C, D); w: (E, D, F); out: (E, C, F); contiguous.
+extern "C" int expert_gemm_tc_fwd(const void* x, const void* w, void* out,
+                                  int E, int C, int D, int F, void* stream) {
+  if (E < 1 || C < 1 || D < 8 || F < 8 || D % 8 != 0 || F % 8 != 0
+      || !aligned16(x) || !aligned16(w) || !aligned16(out))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return tc::launch(x, w, out, E, C, D, F,
+                    static_cast<cudaStream_t>(stream));
+}
+
+// registers a thread at launch, local memory (spills) and dynamic shared
+// memory of the tensor-core kernel: 168 registers (the entry count of a
+// 384-thread block) and no local memory on an NVIDIA H100 80GB HBM3
+extern "C" int expert_gemm_tc_attributes(int* regs, int* local_bytes,
+                                         int* smem_bytes) {
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, tc::gemm_tc);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  *regs = attr.numRegs;
+  *local_bytes = static_cast<int>(attr.localSizeBytes);
+  *smem_bytes = tc::kSmem;
+  return 0;
 }

@@ -1,5 +1,5 @@
 // Hopper (sm_90a) building blocks shared by the port's kernels: shared
-// memory addresses, mbarriers, TMA tensor maps and loads, wgmma
+// memory addresses, mbarriers, TMA tensor maps, loads and stores, wgmma
 // descriptors and products, setmaxnreg and named barriers.
 //
 // Conventions.  Every shared-memory operand is a 32-bit address in the
@@ -118,6 +118,43 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst,
       : "memory");
 }
 
+// one box of shared memory at ``src`` into a 4-D tensor map at coordinates
+// (c0, c1, c2, c3); elements outside the tensor are not written.  The
+// store joins the thread's current bulk group (tma_store_commit)
+__device__ __forceinline__ void tma_store_4d(const CUtensorMap* map,
+                                             uint32_t src, int c0, int c1,
+                                             int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group "
+      "[%0, {%1, %2, %3, %4}], [%5];\n"
+      :: "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
+         "r"(c3), "r"(src)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_store_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// wait until at most N of this thread's bulk groups still read shared
+// memory (their source may then be written again)
+template <int N>
+__device__ __forceinline__ void tma_store_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" :: "n"(N) : "memory");
+}
+
+// wait until at most N of this thread's bulk groups are incomplete
+template <int N>
+__device__ __forceinline__ void tma_store_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// makes this thread's ordinary shared-memory writes visible to the async
+// proxy (a TMA store that reads them); then a barrier, then the store
+__device__ __forceinline__ void fence_proxy_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
 // --------------------------------------------------------------------------
 // wgmma
 
@@ -146,12 +183,22 @@ __device__ __forceinline__ void fence_operand(uint32_t& r) {
 
 // Shared-memory matrix descriptor of a 128-byte-swizzled tile (layout
 // type 1): start address, leading and stride byte offsets, all in units of
-// 16 bytes.  K-major operand (each row of 128 bytes runs along the
-// contraction): SBO = 1024 (from 8 rows to the next 8), LBO unused; one
-// k16 step further along the row is +32 bytes of start address.  MN-major
-// operand (each row of 128 bytes runs along M or N, rows along the
-// contraction): SBO = 1024 (from 8 contraction rows to the next 8), LBO =
-// the stride between 64-column chunks, unused for N = 64.
+// 16 bytes.  Both operand kinds are stored as TMA writes a box with
+// 128-byte swizzle: rows of 128 bytes (64 bf16), the 16-byte chunk j of
+// row r at chunk j ^ (r % 8), each 8 rows (1024 bytes) one swizzle atom.
+//   - K-major operand (each row runs along the contraction, rows along M
+//     or N): SBO = 1024, from 8 rows to the next 8; LBO is not read (the
+//     contraction of one k16 step, 32 bytes, lies inside a row); one k16
+//     step further is +32 bytes of start address.
+//   - MN-major operand (each row runs along M or N, rows along the
+//     contraction): SBO = 1024, from 8 contraction rows to the next 8;
+//     LBO = the stride between 64-column chunks (boxes) along M or N,
+//     read only when the operand is wider than 64 (N = 128: 2 chunks).
+//     Boxes of 64 contraction rows stored one after another
+//     give LBO = 64 x 128 = 8192 bytes; one k16 step further is +16 rows,
+//     +2048 bytes of start address.  (This is CUTLASS's canonical
+//     MN-major SW128 layout ((8 x 16 B, m), (8, k)) : ((16 B, LBO), (128
+//     B, SBO)); K3's V operand is 64 wide and never reads LBO.)
 __device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo,
                                                uint32_t sbo) {
   uint64_t d = 0;
@@ -227,6 +274,41 @@ __device__ __forceinline__ void wgmma_m64n64k16_rs_tb(float (&d)[32],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
+#define HOPPER_ACC8(d, i)                                                   \
+  "+f"(d[(i)]), "+f"(d[(i) + 1]), "+f"(d[(i) + 2]), "+f"(d[(i) + 3]),       \
+  "+f"(d[(i) + 4]), "+f"(d[(i) + 5]), "+f"(d[(i) + 6]), "+f"(d[(i) + 7])
+
+#define HOPPER_ACC64(d)                                                     \
+  HOPPER_ACC8(d, 0), HOPPER_ACC8(d, 8), HOPPER_ACC8(d, 16),                 \
+  HOPPER_ACC8(d, 24), HOPPER_ACC8(d, 32), HOPPER_ACC8(d, 40),               \
+  HOPPER_ACC8(d, 48), HOPPER_ACC8(d, 56)
+
+// d (64 x 128, fp32) = A (64 x 16) B (16 x 128) + (accumulate ? d : 0), A
+// and B bf16 in shared memory, A K-major, B MN-major (two 64-column
+// chunks LBO apart).  Accumulator layout as m64n64k16's, for 16 chunks j
+// of 8 columns: d[4 j .. 4 j + 3] at columns 8 j + 2 (t % 4) and + 1
+__device__ __forceinline__ void wgmma_m64n128k16_ss_tb(float (&d)[64],
+                                                       uint64_t a,
+                                                       uint64_t b,
+                                                       int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "
+      "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "
+      "%58, %59, %60, %61, %62, %63}"
+      ", %64, %65, p, 1, 1, 0, 1;\n"
+      "}\n"
+      : HOPPER_ACC64(d)
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+#undef HOPPER_ACC64
+#undef HOPPER_ACC8
 #undef HOPPER_ACC32_LIST
 #undef HOPPER_ACC32
 

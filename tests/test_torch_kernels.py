@@ -2,11 +2,11 @@
 attention, the SSD chunk scan and the grouped expert GEMM against the
 JAX package (its pure-jnp oracles and its Pallas kernels in interpret
 mode), both Algorithm 3 routes, the wrappers' checks, flash attention's
-choice of kernel, the build's cache key, the split-P product of the
-tensor-core flash attention, and — on a CUDA card only — the
-hand-written kernels (fill-aggregation, int8 quantize and dequantize,
-flash attention on both its kernels, SSD chunk scan, expert GEMM)
-against their plain versions.
+and the expert GEMM's choice of kernel, the build's cache key, the
+split-P product of the tensor-core flash attention, and — on a CUDA card
+only — the hand-written kernels (fill-aggregation, int8 quantize and
+dequantize, flash attention on both its kernels, SSD chunk scan, expert
+GEMM on its three kernels) against their plain versions.
 
 Tolerances: float32 sums of at most 8 terms taken in another order, so
 1e-6 (rtol and atol) for the flat function; the tree routes add the
@@ -34,6 +34,7 @@ torch.set_num_threads(1)
 import numpy as np  # noqa: E402
 
 from repro_torch.kernels import build, ops, ref  # noqa: E402
+from repro_torch.kernels import expert_gemm as egemm  # noqa: E402
 from repro_torch.kernels import flash_attention as flash  # noqa: E402
 
 TOL = 1e-6
@@ -402,6 +403,22 @@ def test_flash_variant_is_chosen_by_dtype_and_head_dim(dtype, d, aligned,
     assert flash.variant(dtype, d, aligned) == expected
 
 
+@pytest.mark.parametrize("dtype,d,f,aligned,expected", [
+    (torch.bfloat16, 1024, 512, True, "tensor_core"),   # granite's wi, wg
+    (torch.bfloat16, 512, 1024, True, "tensor_core"),   # granite's wo
+    (torch.bfloat16, 200, 72, True, "tensor_core"),     # D, F not of 64
+    (torch.bfloat16, 8, 8, True, "tensor_core"),
+    (torch.bfloat16, 1024, 512, False, "mma_sync"),     # TMA: 16-byte bases
+    (torch.bfloat16, 100, 512, True, "mma_sync"),       # x rows not 16 B
+    (torch.bfloat16, 1024, 70, True, "mma_sync"),       # w, out rows
+    (torch.bfloat16, 5, 7, True, "mma_sync"),
+    (torch.float32, 1024, 512, True, "cuda_core"),      # the exact reference
+    (torch.float32, 5, 7, False, "cuda_core")])
+def test_expert_gemm_variant_is_chosen_by_dtype_shape_and_alignment(
+        dtype, d, f, aligned, expected):
+    assert egemm.variant(dtype, d, f, aligned) == expected
+
+
 def test_library_path_covers_the_shared_headers(tmp_path, monkeypatch):
     """An edited ``csrc/*.cuh`` gives every kernel a new build directory,
     so no stale library is loaded; unchanged sources keep theirs."""
@@ -562,21 +579,71 @@ def test_cuda_ssd_scan_matches_plain_version(cuda, b, nc, q, h, p, n):
     (32, 1280, 1024, 512),       # granite-moe-1b-a400m's prefill, wi/wg
     (32, 1280, 512, 1024),       # the same, wo
     (32, 8, 1024, 512),          # decode
+    (1, 64, 64, 128),            # one tile, N = 128: the B operand's LBO
+    (1, 128, 64, 256),           # two column tiles of one expert
+    (2, 130, 8, 264),            # one contraction step, ragged everything
     (1, 1, 1, 1), (2, 3, 5, 7)])  # one element; odd everything
 def test_cuda_expert_gemm_matches_plain_version(cuda, dtype, e, c, d, f):
     tdt = getattr(torch, dtype)
     x, w = (torch.from_numpy(a).to(cuda, tdt)
             for a in gemm_np(e, c, d, f, seed=c))
     before = ops.LAUNCHES["expert_gemm"]
+    variants = dict(egemm.VARIANT_LAUNCHES)
     out = ops.expert_gemm(x, w)
     torch.cuda.synchronize()
     assert ops.LAUNCHES["expert_gemm"] == before + 1
+    which = egemm.variant(tdt, d, f)
+    assert {n: egemm.VARIANT_LAUNCHES[n] - variants[n] for n in variants} \
+        == {**dict.fromkeys(variants, 0), which: 1}
     assert out.dtype == tdt and out.shape == (e, c, f)
-    plain = ref.expert_gemm(x, w).float()
+    assert_gemm_close(out, ref.expert_gemm(x, w), dtype)
+
+
+def assert_gemm_close(out, plain, dtype):
+    """Kernel against plain version, both divided by the plain output's
+    largest magnitude."""
+    plain = plain.float()
     scale = float(plain.abs().max()) + 1e-6
     rtol, atol = KERNEL_GEMM_TOL[dtype]
     torch.testing.assert_close(out.float() / scale, plain / scale, rtol=rtol,
                                atol=atol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("e,c,d,f", [(32, 1280, 1024, 512),
+                                     (2, 100, 200, 72)])
+def test_cuda_expert_gemm_tensor_core_repeats_bit_for_bit(cuda, e, c, d, f):
+    """The tensor-core kernel sums in a fixed order (no atomics): the same
+    bf16 call twice gives the same bits."""
+    x, w = (torch.from_numpy(a).to(cuda, torch.bfloat16)
+            for a in gemm_np(e, c, d, f, seed=5))
+    before = egemm.VARIANT_LAUNCHES["tensor_core"]
+    first = ops.expert_gemm(x, w)
+    second = ops.expert_gemm(x, w)
+    torch.cuda.synchronize()
+    assert egemm.VARIANT_LAUNCHES["tensor_core"] == before + 2
+    assert torch.equal(first.view(torch.int16), second.view(torch.int16))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("e,c,d,f", [(2, 100, 200, 72),
+                                     (4, 256, 256, 384)])
+def test_cuda_expert_gemm_misaligned_bf16_runs_mma_sync(cuda, e, c, d, f):
+    """x and w that start 2 bytes past a 16-byte boundary (views into
+    a larger buffer) take the mma.sync kernel, which matches too."""
+    xs, ws = gemm_np(e, c, d, f, seed=9)
+    bufs = [torch.zeros(a.size + 1, dtype=torch.bfloat16, device=cuda)
+            for a in (xs, ws)]
+    x, w = (b[1:].view(a.shape) for b, a in zip(bufs, (xs, ws)))
+    x.copy_(torch.from_numpy(xs))
+    w.copy_(torch.from_numpy(ws))
+    assert x.is_contiguous() and x.data_ptr() % 16 == 2
+    variants = dict(egemm.VARIANT_LAUNCHES)
+    out = ops.expert_gemm(x, w)
+    torch.cuda.synchronize()
+    assert {n: egemm.VARIANT_LAUNCHES[n] - variants[n] for n in variants} \
+        == {**dict.fromkeys(variants, 0), "mma_sync": 1}
+    assert_gemm_close(out, ref.expert_gemm(x, w), "bfloat16")
 
 
 @pytest.mark.cuda
