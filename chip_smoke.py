@@ -15,14 +15,21 @@ Phases, each fatal on failure:
    expert GEMM's, with no local memory (no spill);
 3. check: each kernel against its plain PyTorch version on the card, at
    the main path's shapes and at ragged ones: fill-aggregation within
-   rtol = atol = 1e-6, int8 quantize/dequantize bit for bit (exact ties,
-   zeros, clipping, the largest leaf and the whole master as one vector);
+   rtol = atol = 1e-6; int8 quantize/dequantize bit for bit, per vector
+   (exact ties, zeros, clipping, views 0-3 elements past a 16-byte
+   boundary, the largest leaf and the whole master as one vector) and
+   per tree with the scale pass (the 126-leaf master, the same master as
+   views of one flat vector 1-3 elements past a boundary, a 600-leaf
+   tree over a table's capacity, ties with zeros, all-zero and 1-element
+   leaves, and ties and clipping at given scales), 3 launches a chunk;
 4. timing: each kernel at the main path's shape (int8: its largest leaf,
    and the whole master as one vector), beside its bound, its plain
    version and the nearest single PyTorch call, all as device time
    (calls queued behind a spin kernel), and the kernel's time per call
-   with the host's dispatch; one int8 roundtrip of the 126-leaf
-   full-width master on the kernel and torch routes, dispatch included;
+   with the host's dispatch; the int8 kernels and the scale pass over
+   the 126-leaf full-width master as one tree, and its roundtrip's
+   device time beside its 14 P-byte bound and its time with dispatch on
+   the kernel and torch routes;
 5. main path: ``FedEngine`` + ``RealTimeNas`` on the full 12-block CIFAR
    supernet (26,119,059 parameters), 8 clients, 2 generations, with
    Algorithm 3 on the kernel; the launch counts are zeroed just before
@@ -33,13 +40,14 @@ Phases, each fatal on failure:
    the JAX package);
 7. codec path: the phase-5 run with ``uplink_codec`` and
    ``downlink_codec`` ``"int8:kernel"`` (launch counts zeroed before and
-   read after: 8 roundtrips x 126 leaves of each int8 kernel, 3
-   fill-aggregations), then with ``"int8:torch"``: equal keys and
+   read after: 8 roundtrips x 1 chunk of the scale pass and of each int8
+   kernel, 3 fill-aggregations), then with ``"int8:torch"``: equal keys and
    CommStats, masters within 1e-4, wire bytes below logical bytes;
 8. baselines at full width with the ``"int8:kernel"`` uplink:
    ``FedAvgBaseline`` on the all-residual key for 2 rounds and
    ``OfflineNas`` with population 2 for 1 generation, each with its
-   launch counts zeroed before and read after;
+   launch counts zeroed before and read after (one launch of each int8
+   kernel per roundtrip);
 9. flash attention (K3), the SSD chunk scan (K4) and the grouped expert
    GEMM (K5) against their plain versions on the card: K3 in float32 and
    bfloat16 at the shapes of the
@@ -113,12 +121,12 @@ from repro_torch.core import cnn_supernet_api  # noqa: E402
 from repro_torch.data import make_classification, make_clients, \
     partition_iid  # noqa: E402
 from repro_torch.comm import make_codec  # noqa: E402
-from repro_torch.comm.quantize import leaf_scale  # noqa: E402
 from repro_torch.engine import FedAvgBaseline, FedEngine, OfflineNas, \
     RunConfig  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
 from repro_torch.kernels import expert_gemm as egemm  # noqa: E402
 from repro_torch.kernels import flash_attention as flash  # noqa: E402
+from repro_torch.kernels import quantize as kq  # noqa: E402
 from repro_torch.launch.serve import greedy_generate, make_decode_step, \
     make_prefill_step  # noqa: E402
 from repro_torch.models import moe  # noqa: E402
@@ -132,6 +140,7 @@ BF16_FLOPS = 989e12         # H100 SXM data sheet, dense bf16 tensor cores
 MAIN_M, MAIN_P = 8, 26_119_059   # uploads per train_fill x master params
 LEAF_P = 2_359_296               # the master's largest leaf (512 x 512 x 3 x 3)
 N_LEAVES = 126                   # float leaves of the full-width master
+N_CHUNKS = -(-N_LEAVES // kq.CAPACITY)   # int8 launches per roundtrip
 # lr0 0.01, as the CPU parity tests: the compared runs then differ at
 # round-off and no argmax flips between them
 RUN = dict(population=4, generations=2, backend="loop", lr0=0.01,
@@ -186,18 +195,20 @@ def check_fill_aggregate() -> float:
     return worst
 
 
-def int8_inputs(p, seed, ties):
-    """(x, scale) on the card.  ``ties``: a power-of-two scale and x on
-    the half-steps k + 0.5 of its grid (exact ties, which round half to
+def int8_inputs(p, seed, ties, offset=0):
+    """(x, scale) on the card, x a view ``offset`` elements past the
+    start of its buffer.  ``ties``: a power-of-two scale and x on the
+    half-steps k + 0.5 of its grid (exact ties, which round half to
     even), every seventh entry zero and |k| up to 140 (beyond 127: they
     clip); else normal x with the main path's scale, max|x| / 127."""
     g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.empty(offset + p, device="cuda")[offset:]
     if not ties:
-        x = torch.randn(p, device="cuda", generator=g)
-        return x, leaf_scale(x)
+        x.copy_(torch.randn(p, device="cuda", generator=g))
+        return x, ref.int8_scale(x)
     scale = torch.tensor(2.0 ** -6, device="cuda")
     k = torch.randint(-140, 140, (p,), device="cuda", generator=g).float()
-    x = (k + 0.5) * scale
+    x.copy_((k + 0.5) * scale)
     x[::7] = 0.0
     return x, scale
 
@@ -208,15 +219,21 @@ def check_int8() -> tuple:
     worst_q = worst_d = 0.0
     for i, p in enumerate((1, 1000, 8193, 100_003, LEAF_P, MAIN_P)):
         for ties in (False, True):
-            x, scale = int8_inputs(p, seed=100 + i, ties=ties)
+            x, scale = int8_inputs(p, seed=100 + i, ties=ties,
+                                   offset=(i + ties) % 4)
             q = ops.quantize_int8(x, scale)
-            d = ops.dequantize_int8(q, scale)
+            # and from an int8 vector 0-3 bytes past a 16-byte boundary
+            q_view = torch.empty(i % 4 + p, dtype=torch.int8,
+                                 device="cuda")[i % 4:]
+            q_view.copy_(q)
+            d = ops.dequantize_int8(q_view, scale)
             torch.cuda.synchronize()
             q_plain = ref.quantize_int8(x, scale)
             d_plain = ref.dequantize_int8(q, scale)
             err_q = float((q.int() - q_plain.int()).abs().max())
             err_d = float((d - d_plain).abs().max())
-            log(f"check int8 (P={p}, ties={ties}): max |kernel - plain| = "
+            log(f"check int8 (P={p}, ties={ties}, x offset "
+                f"{(i + ties) % 4}, q offset {i % 4}): max |kernel - plain| = "
                 f"{err_q!r} (quantize), {err_d!r} (dequantize)")
             if not (torch.equal(q, q_plain) and torch.equal(
                     d.view(torch.int32), d_plain.view(torch.int32))):
@@ -230,10 +247,121 @@ def check_int8() -> tuple:
     return worst_q, worst_d
 
 
-def device_ms(fn, reps: int, rounds: int = 5) -> float:
+def master_leaves(api) -> list:
+    """The float leaves of the full-width master, on the card."""
+    master = api.init(torch.Generator().manual_seed(0))
+    leaves = [v.cuda() for v in master.values() if v.is_floating_point()]
+    if len(leaves) != N_LEAVES:
+        raise AssertionError(f"master has {len(leaves)} float leaves")
+    return leaves
+
+
+def flat_views(leaves, offset: int) -> list:
+    """``leaves`` as K1 hands them back: views of one flat vector, the
+    first ``offset`` elements past its start."""
+    flat = torch.empty(offset + sum(x.numel() for x in leaves),
+                       device="cuda")
+    views, off = [], offset
+    for x in leaves:
+        views.append(flat[off: off + x.numel()].view(x.shape))
+        views[-1].copy_(x)
+        off += x.numel()
+    return views
+
+
+def int8_trees(api) -> list:
+    """(label, leaves, given scales or None) for the tree checks."""
+    leaves = master_leaves(api)
+    g = torch.Generator(device="cuda").manual_seed(11)
+    sizes = torch.randint(1, 3000, (600,), generator=torch.Generator(
+        ).manual_seed(12)).tolist()
+    many = flat_views([torch.randn(n, device="cuda", generator=g)
+                       for n in sizes], 1)
+    many[5].zero_()
+    many[6] = many[6][:1]
+    step = 2.0 ** -6
+    # max|x| = 127 step gives the scale step exactly: every other entry is
+    # a tie of x / scale, which rounds half to even
+    ties = []
+    for n in (3, 4100, 70_001, 100_003):
+        k = torch.randint(-127, 127, (n,), device="cuda", generator=g)
+        x = (k.float() + 0.5) * step
+        x[0] = 127 * step
+        x[1::7] = 0.0
+        ties.append(x)
+    ties += [torch.zeros(33, device="cuda"), torch.full((1,), -0.3,
+                                                        device="cuda")]
+    clip = [((torch.randint(-140, 140, (n,), device="cuda", generator=g)
+              .float() + 0.5) * step) for n in (1, 17, 4096, 5000, 100_003)]
+    return [("master", leaves, None),
+            *[(f"master as views {o} elements past a boundary",
+               flat_views(leaves, o), None) for o in (1, 2, 3)],
+            ("600 leaves, 3 chunks", many, None),
+            ("ties, zeros, all-zero and 1-element leaves", ties, None),
+            ("ties and clipping at a given scale", clip,
+             torch.full((len(clip),), step, device="cuda"))]
+
+
+def check_int8_tree(api) -> tuple:
+    """The scale pass, K2a and K2b over trees against the plain per-leaf
+    route (``ref.int8_scale``, ``ref.quantize_int8``,
+    ``ref.dequantize_int8``), bit for bit, with 3 launches a chunk (2
+    with given scales).  Returns the largest absolute difference of the
+    scales, the int8 steps and the float32 outputs."""
+    worst = [0.0, 0.0, 0.0]
+    for label, leaves, given in int8_trees(api):
+        before = dict(ops.LAUNCHES)
+        q, scales, layout = ops.quantize_int8_leaves(leaves, given)
+        outs = ops.dequantize_int8_leaves(q, scales, layout)
+        torch.cuda.synchronize()
+        chunks = len(layout.chunks)
+        launched = {k: ops.LAUNCHES[k] - before[k] for k in before}
+        expected = {**dict.fromkeys(before, 0), "quantize_int8": chunks,
+                    "dequantize_int8": chunks,
+                    "int8_scale": chunks if given is None else 0}
+        if launched != expected:
+            raise AssertionError(f"int8 tree {label}: launches {launched}, "
+                                 f"expected {expected}")
+        errs, same, q_max = [0.0, 0.0, 0.0], True, 0
+        for i, (x, off, out) in enumerate(zip(
+                leaves, layout.offsets.tolist(), outs)):
+            s_plain = ref.int8_scale(x) if given is None else given[i]
+            q_plain = ref.quantize_int8(x.reshape(-1), s_plain)
+            d_plain = ref.dequantize_int8(q_plain, s_plain)
+            q_leaf = q[off: off + x.numel()]
+            q_max = max(q_max, int(q_leaf.int().abs().max()))
+            errs = [max(errs[0], float((scales[i] - s_plain).abs())),
+                    max(errs[1], float((q_leaf.int() - q_plain.int())
+                                       .abs().max())),
+                    max(errs[2], float((out.reshape(-1) - d_plain)
+                                       .abs().max()))]
+            same &= (torch.equal(scales[i].view(torch.int32),
+                                 s_plain.view(torch.int32))
+                     and torch.equal(q_leaf, q_plain)
+                     and out.shape == x.shape
+                     and torch.equal(out.reshape(-1).view(torch.int32),
+                                     d_plain.view(torch.int32)))
+        log(f"check int8 tree ({label}; {len(leaves)} leaves, {chunks} "
+            f"chunk(s), launches {launched}): max |kernel - plain| = "
+            f"{errs[0]!r} (scales), {errs[1]!r} (quantize), {errs[2]!r} "
+            f"(dequantize)")
+        if not same:
+            raise AssertionError(f"int8 tree kernels differ from the plain "
+                                 f"per-leaf route: {label}")
+        if given is not None and q_max != 127:
+            raise AssertionError("tie inputs did not reach the clip")
+        worst = [max(a, b) for a, b in zip(worst, errs)]
+        del leaves, q, outs
+    torch.cuda.empty_cache()
+    return tuple(worst)
+
+
+def device_ms(fn, reps: int, rounds: int = 5, spin: int = 100_000
+              ) -> float:
     """Device time of one call: ``reps`` calls queued back to back behind
-    a spin kernel (so the host's dispatch time is hidden), timed with
-    CUDA events over the batch; the median over ``rounds`` batches."""
+    a spin kernel (so the host's dispatch time is hidden: ``spin`` cycles
+    per call, ~50 us by default, must outlast one call's dispatch), timed
+    with CUDA events over the batch; the median over ``rounds`` batches."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
@@ -241,7 +369,7 @@ def device_ms(fn, reps: int, rounds: int = 5) -> float:
     for _ in range(rounds):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(reps * 100_000)     # ~50 us of spinning per call
+        torch.cuda._sleep(reps * spin)
         start.record()
         for _ in range(reps):
             fn()
@@ -344,20 +472,68 @@ def time_int8(card: str, p: int) -> dict:
     return res
 
 
-def time_roundtrip(card: str, api) -> dict:
-    """One int8 roundtrip (scale, quantize, dequantize per leaf) of the
-    full-width master, kernel route against torch route."""
-    master = {k: v.cuda() for k, v in
-              api.init(torch.Generator().manual_seed(0)).items()}
-    n = sum(1 for v in master.values() if v.is_floating_point())
-    if n != N_LEAVES:
-        raise AssertionError(f"master has {n} float leaves")
-    out = {route: median_ms(
-        lambda: make_codec(f"int8:{route}").roundtrip(master), 10)
-        for route in ("kernel", "torch")}
-    log(f"timing int8 roundtrip of the {n}-leaf master on {card}: kernel "
-        f"route {out['kernel']!r} ms, torch route {out['torch']!r} ms")
-    return out
+def time_tree(card: str, api) -> dict:
+    """The scale pass, K2a and K2b over the 126-leaf full-width master as
+    one tree (device time, each alone: K2a at the scales the scale pass
+    made), its roundtrip's device time (all three) beside the bound of
+    its 14 P bytes, and one roundtrip with the host's dispatch on the
+    kernel and the torch route (the torch route's 756 launches)."""
+    leaves = master_leaves(api)
+    master = dict(enumerate(leaves))
+    p, n = MAIN_P, len(leaves)
+    q, scales, layout = ops.quantize_int8_leaves(leaves)
+    spin = 4_000_000       # ~2 ms of spinning per call: the host's dispatch
+    kernel = make_codec("int8:kernel")
+    plain = make_codec("int8:torch")
+    roundtrip = {
+        "roundtrip_device_ms": device_ms(
+            lambda: kernel.roundtrip(master), 10, spin=spin),
+        **bound(14 * p + 12 * n, 6 * p, FP32_FLOPS),
+        "roundtrip_ms": median_ms(lambda: kernel.roundtrip(master), 10),
+        "roundtrip_torch_ms": median_ms(lambda: plain.roundtrip(master),
+                                        10)}
+    roundtrip["roundtrip_bound_ms"] = roundtrip.pop("bound_ms")
+    roundtrip.pop("bound_by")
+    res = {name: {"tree_ms": device_ms(fn, 20, spin=spin),
+                  "tree_bound_ms": bound(nbytes, n_ops, FP32_FLOPS)[
+                      "bound_ms"], **roundtrip}
+           for name, fn, nbytes, n_ops in (
+               ("quantize_int8",
+                lambda: ops.quantize_int8_leaves(leaves, scales),
+                5 * p + 4 * n, 4 * p),
+               ("dequantize_int8",
+                lambda: ops.dequantize_int8_leaves(q, scales, layout),
+                5 * p + 4 * n, p))}
+    # the scale pass: its own line of the kernels JSON; the nearest single
+    # PyTorch call is max|x| per tensor, one launch for the list (timed
+    # here, never used)
+    try:
+        torch._foreach_norm(leaves, float("inf"))
+        library = device_ms(lambda: torch._foreach_norm(leaves, float("inf")),
+                            20, spin=spin)
+    except (RuntimeError, NotImplementedError) as e:
+        log(f"library call torch._foreach_norm unavailable: {e}")
+        library = None
+    res["int8_scale"] = {
+        "ms": device_ms(lambda: ops.int8_scales(leaves), 20, spin=spin),
+        "plain_ms": device_ms(lambda: ref.int8_scales(leaves), 5,
+                              spin=40_000_000),
+        "library_ms": library,
+        **bound(4 * p + 4 * n, 2 * p, FP32_FLOPS)}
+    log(f"timing the int8 tree ({n} leaves, {len(layout.chunks)} chunk, P="
+        f"{p}) on {card}: scale pass {res['int8_scale']['ms']!r} ms (bound "
+        f"{res['int8_scale']['bound_ms']!r}, plain per leaf "
+        f"{res['int8_scale']['plain_ms']!r}, torch._foreach_norm "
+        f"{library!r}), K2a {res['quantize_int8']['tree_ms']!r} ms, K2b "
+        f"{res['dequantize_int8']['tree_ms']!r} ms (bound "
+        f"{res['quantize_int8']['tree_bound_ms']!r} each); roundtrip: "
+        f"device {roundtrip['roundtrip_device_ms']!r} ms (bound "
+        f"{roundtrip['roundtrip_bound_ms']!r}), with its dispatch "
+        f"{roundtrip['roundtrip_ms']!r} ms, torch route "
+        f"{roundtrip['roundtrip_torch_ms']!r} ms")
+    del leaves, master, q
+    torch.cuda.empty_cache()
+    return res
 
 
 def zero_launches() -> None:
@@ -1036,18 +1212,19 @@ def main() -> int:
     gemm_resources = expert_gemm_resources()
 
     # 3. each kernel against its plain version (these launches don't count)
+    cfg = get_config("cifar-supernet")
+    api = cnn_supernet_api(cfg)
+    if api.master_params() != MAIN_P:
+        raise AssertionError(f"master has {api.master_params()} params")
     max_err = check_fill_aggregate()
     err_q, err_d = check_int8()
+    err_tree = check_int8_tree(api)
 
     # 4. timing
     timing = time_fill_aggregate(card)
     int8_timing = time_int8(card, LEAF_P)
     time_int8(card, MAIN_P)
-    cfg = get_config("cifar-supernet")
-    api = cnn_supernet_api(cfg)
-    if api.master_params() != MAIN_P:
-        raise AssertionError(f"master has {api.master_params()} params")
-    time_roundtrip(card, api)
+    tree_timing = time_tree(card, api)
 
     # 5. the main path, kernel route, at full width
     clients = full_width_clients()
@@ -1058,8 +1235,7 @@ def main() -> int:
     torch.cuda.synchronize()
     # 2 train_fill in generation 1, then 1 per generation
     n_fill = RUN["generations"] + 1
-    launches = expect_launches("main path", {
-        "fill_aggregate": n_fill, "quantize_int8": 0, "dequantize_int8": 0})
+    launches = expect_launches("main path", {"fill_aggregate": n_fill})
     check_run(kernel_run, "main path")
     for r in kernel_run.reports:
         log(f"main path generation {r.gen}: round_s {r.round_s!r}, best_err "
@@ -1087,8 +1263,9 @@ def main() -> int:
     same_trajectory(gpu, cpu, "smoke size, card vs CPU", MASTER_TOL)
 
     # 7. the codec path: int8 both ways, kernel route, then torch route.
-    # One roundtrip per leaf: the downlink before every train_fill and
-    # eval_shared, the uplink after every train_fill
+    # Roundtrips: the downlink before every train_fill and eval_shared,
+    # the uplink after every train_fill; one launch of the scale pass, K2a
+    # and K2b per roundtrip (the master is one chunk)
     roundtrips = 2 * n_fill + RUN["generations"]
     codec_runs = {}
     for route in ("kernel", "torch"):
@@ -1098,10 +1275,10 @@ def main() -> int:
         run = FedEngine(api, clients, RunConfig(
             uplink_codec=spec, downlink_codec=spec, **RUN)).run()
         torch.cuda.synchronize()
-        n_int8 = roundtrips * N_LEAVES if route == "kernel" else 0
+        n_int8 = roundtrips * N_CHUNKS if route == "kernel" else 0
         got = expect_launches(f"codec path {spec}", {
-            "fill_aggregate": n_fill, "quantize_int8": n_int8,
-            "dequantize_int8": n_int8})
+            "fill_aggregate": n_fill, "int8_scale": n_int8,
+            "quantize_int8": n_int8, "dequantize_int8": n_int8})
         check_run(run, f"codec path {spec}")
         st = run.stats
         if not (st.up_wire_bytes < st.up_bytes
@@ -1129,9 +1306,10 @@ def main() -> int:
     fedavg = FedEngine(api, clients, RunConfig(**up),
                        strategy=FedAvgBaseline(np.ones(12))).run()
     torch.cuda.synchronize()
+    n_int8 = rounds * N_CHUNKS
     expect_launches("FedAvgBaseline", {
-        "fill_aggregate": 0, "quantize_int8": rounds * N_LEAVES,
-        "dequantize_int8": rounds * N_LEAVES})
+        "fill_aggregate": 0, "int8_scale": n_int8, "quantize_int8": n_int8,
+        "dequantize_int8": n_int8})
     check_run(fedavg, "FedAvgBaseline")
     log(f"FedAvgBaseline errors {[r.best_err for r in fedavg.reports]}, "
         f"round_s {[r.round_s for r in fedavg.reports]}")
@@ -1143,9 +1321,10 @@ def main() -> int:
     offline = FedEngine(api, clients, RunConfig(**off),
                         strategy=OfflineNas()).run()
     torch.cuda.synchronize()
+    n_int8 = n_models * N_CHUNKS
     expect_launches("OfflineNas", {
-        "fill_aggregate": 0, "quantize_int8": n_models * N_LEAVES,
-        "dequantize_int8": n_models * N_LEAVES})
+        "fill_aggregate": 0, "int8_scale": n_int8, "quantize_int8": n_int8,
+        "dequantize_int8": n_int8})
     check_run(offline, "OfflineNas")
     log(f"OfflineNas objectives {offline.reports[0].objs.tolist()}, "
         f"round_s {offline.reports[0].round_s!r}")
@@ -1176,14 +1355,24 @@ def main() -> int:
         "name": "quantize_int8", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/quantize_int8.cu",
         "replaces": "src/repro/kernels/quantize.py:56",
-        "launches": codec_launches["quantize_int8"], "max_abs_err": err_q,
-        **int8_timing["quantize_int8"],
+        "launches": codec_launches["quantize_int8"],
+        "max_abs_err": max(err_q, err_tree[1]),
+        **int8_timing["quantize_int8"], **tree_timing["quantize_int8"],
     }, {
         "name": "dequantize_int8", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/quantize_int8.cu",
         "replaces": "src/repro/kernels/quantize.py:61",
-        "launches": codec_launches["dequantize_int8"], "max_abs_err": err_d,
-        **int8_timing["dequantize_int8"],
+        "launches": codec_launches["dequantize_int8"],
+        "max_abs_err": max(err_d, err_tree[2]),
+        **int8_timing["dequantize_int8"], **tree_timing["dequantize_int8"],
+    }, {
+        # not a TPU kernel: the per-leaf max|x| / 127 that the JAX
+        # package leaves to XLA, over the master as one tree
+        "name": "int8_scale", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/quantize_int8.cu",
+        "replaces": "src/repro/comm/quantize.py:31",
+        "launches": codec_launches["int8_scale"], "max_abs_err": err_tree[0],
+        **tree_timing["int8_scale"],
     }, {
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",

@@ -7,34 +7,21 @@ round-trip error is ``scale / 2``).  Wire cost is 1 byte per parameter
 plus ``SCALE_BYTES`` per payload (one amortized scale: the tensor count
 of a payload is not recoverable from a parameter count alone).
 
-``backend="kernel"`` runs the elementwise quantize/dequantize through
-the wrappers of the hand-written CUDA kernels (``repro_torch.kernels.ops``:
-one launch of each per leaf on the card, the plain version for a tree on
-the CPU); ``"torch"`` runs the plain versions (``repro_torch.kernels.ref``)
-on any device.  The scale never leaves the device.
+``backend="kernel"`` runs the whole tree through the wrappers of the
+hand-written CUDA kernels (``repro_torch.kernels.ops``): one launch each
+of the scale pass, K2a and K2b per 256 leaves on the card, the plain
+version over the same flat layout on the CPU; the reconstructed leaves
+are views of one flat buffer.  ``"torch"`` runs the plain versions
+(``repro_torch.kernels.ref``) leaf by leaf on any device.  The scales
+never leave the device.
 """
 from __future__ import annotations
 
 import dataclasses
 
-import numpy as np
-import torch
-
 from repro_torch.comm.codec import SCALE_BYTES, PayloadCodec, \
     tree_map_float
-
-QMAX = 127.0
-# The JAX package writes the scale as ``max / 127``, and XLA compiles a
-# division by a constant into a multiply by its float32 reciprocal; the
-# port multiplies explicitly so that the scales agree bit for bit.
-_INV_QMAX = float(np.float32(1.0) / np.float32(QMAX))
-
-
-def leaf_scale(x: torch.Tensor) -> torch.Tensor:
-    """Per-tensor symmetric scale ``max|x| / 127`` as a 0-d float32 on
-    x's device (floored so an all-zero tensor round-trips to zeros
-    instead of dividing by 0)."""
-    return torch.clamp_min(x.float().abs().amax(), 1e-12) * _INV_QMAX
+from repro_torch.kernels.ref import int8_scale as leaf_scale
 
 
 def _roundtrip(tree, quantize, dequantize):
@@ -45,6 +32,20 @@ def _roundtrip(tree, quantize, dequantize):
         return dequantize(q, scale).view(x.shape).to(x.dtype)
 
     return tree_map_float(leaf, tree)
+
+
+def _roundtrip_tree(tree):
+    from repro_torch.kernels import ops
+
+    keys = [k for k, x in tree.items() if x.is_floating_point()]
+    if not keys:
+        return dict(tree)
+    q, scales, layout = ops.quantize_int8_leaves(
+        [tree[k].float().contiguous() for k in keys])
+    out = dict(tree)
+    for k, y in zip(keys, ops.dequantize_int8_leaves(q, scales, layout)):
+        out[k] = y.to(tree[k].dtype)
+    return out
 
 
 @dataclasses.dataclass(frozen=True)
@@ -59,7 +60,6 @@ class Int8Codec(PayloadCodec):
 
     def roundtrip(self, tree):
         if self.backend == "kernel":
-            from repro_torch.kernels import ops
-            return _roundtrip(tree, ops.quantize_int8, ops.dequantize_int8)
+            return _roundtrip_tree(tree)
         from repro_torch.kernels import ref
         return _roundtrip(tree, ref.quantize_int8, ref.dequantize_int8)

@@ -8,13 +8,15 @@ run can show that its main path went through the kernels.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 import torch.nn.functional as F
 
+from repro_torch.kernels import quantize as _q
 from repro_torch.kernels import ref
 
-LAUNCHES = {"fill_aggregate": 0, "quantize_int8": 0,
+LAUNCHES = {"fill_aggregate": 0, "int8_scale": 0, "quantize_int8": 0,
             "dequantize_int8": 0, "flash_attention": 0, "ssd_scan": 0,
             "expert_gemm": 0}
 # the routes of the language models' attention, SSD scan and expert FFN:
@@ -92,11 +94,10 @@ def _check_int8_args(name: str, src: torch.Tensor, src_dtype: torch.dtype,
 
 def quantize_int8(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     """x: (P,) float32, contiguous; scale: one float32 on x's device ->
-    (P,) int8 on the symmetric grid (kernel K2a)."""
+    (P,) int8 on the symmetric grid (kernel K2a, one-leaf table)."""
     dev = _check_int8_args("quantize_int8", x, torch.float32, scale)
     if dev.type == "cpu":
         return ref.quantize_int8(x, scale)
-    from repro_torch.kernels import quantize as _q
     out = _q.quantize(x, scale)
     LAUNCHES["quantize_int8"] += 1
     return out
@@ -104,14 +105,120 @@ def quantize_int8(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
 
 def dequantize_int8(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     """q: (P,) int8, contiguous; scale: one float32 on q's device -> (P,)
-    float32 ``q * scale`` (kernel K2b)."""
+    float32 ``q * scale`` (kernel K2b, one-leaf table)."""
     dev = _check_int8_args("dequantize_int8", q, torch.int8, scale)
     if dev.type == "cpu":
         return ref.dequantize_int8(q, scale)
-    from repro_torch.kernels import quantize as _q
     out = _q.dequantize(q, scale)
     LAUNCHES["dequantize_int8"] += 1
     return out
+
+
+def _check_scales(name: str, scales: torch.Tensor, n: int) -> None:
+    if scales.dtype != torch.float32:
+        raise TypeError(f"{name}: scales must be float32, got {scales.dtype}")
+    if scales.shape != (n,) or not scales.is_contiguous():
+        raise ValueError(f"{name}: scales must be a contiguous ({n},), got "
+                         f"shape {tuple(scales.shape)}")
+
+
+def _check_leaves(name: str, leaves) -> torch.device:
+    if not isinstance(leaves, (list, tuple)) or not leaves:
+        raise ValueError(f"{name}: need a non-empty list of tensors")
+    dev = _common_device(name, *leaves)
+    for i, x in enumerate(leaves):
+        if x.dtype != torch.float32:
+            raise TypeError(f"{name}: leaf {i} must be float32, got "
+                            f"{x.dtype}")
+        if not x.is_contiguous() or x.numel() < 1:
+            raise ValueError(f"{name}: leaf {i} must be contiguous and "
+                             f"non-empty, got shape {tuple(x.shape)}")
+    return dev
+
+
+def _leaf_pointers(leaves) -> np.ndarray:
+    return np.fromiter((x.data_ptr() for x in leaves), np.uint64,
+                       len(leaves))
+
+
+def _launch_chunks(name: str, layout, tables, scales: torch.Tensor) -> None:
+    for i, table in enumerate(tables):
+        _q.launch(name, layout, i, table, scales)
+        LAUNCHES[name] += 1
+
+
+def int8_scales(leaves) -> torch.Tensor:
+    """leaves: a non-empty sequence of float32, contiguous, non-empty
+    tensors of any shape on one device -> (N,) float32, each leaf's
+    ``max|x| / 127`` as ``comm.quantize.leaf_scale`` computes it (the
+    scale pass: one launch per ``CAPACITY`` leaves on the card)."""
+    dev = _check_leaves("int8_scales", leaves)
+    layout = _q.layout_of(leaves)
+    if dev.type == "cpu":
+        return ref.int8_scales(leaves)
+    with torch.cuda.device(dev):
+        scales = torch.empty(len(leaves), dtype=torch.float32, device=dev)
+    src = _leaf_pointers(leaves)
+    _launch_chunks("int8_scale", layout, layout.tables(src, src), scales)
+    return scales
+
+
+def quantize_int8_leaves(leaves, scales=None):
+    """leaves: as ``int8_scales`` -> (q_flat, scales, layout): each leaf
+    on the symmetric grid of its own scale, in its segment
+    (``layout.offsets``) of one flat int8 buffer; scales (N,) float32,
+    ``int8_scales(leaves)`` unless ``scales`` gives them.  On the card
+    one launch of the scale pass (when it computes the scales) and one
+    of K2a per ``CAPACITY`` leaves."""
+    name = "quantize_int8_leaves"
+    dev = _check_leaves(name, leaves)
+    if scales is not None:
+        _common_device(name, leaves[0], scales)
+        _check_scales(name, scales, len(leaves))
+    layout = _q.layout_of(leaves)
+    if dev.type == "cpu":
+        return (*ref.quantize_int8_leaves(leaves, layout, scales), layout)
+    with torch.cuda.device(dev):
+        q_flat = _q.aligned_empty(layout.total, torch.int8, dev)
+        computed = scales is None
+        if computed:
+            scales = torch.empty(len(leaves), dtype=torch.float32,
+                                 device=dev)
+    tables = layout.tables(_leaf_pointers(leaves),
+                           layout.offsets_u64 + np.uint64(q_flat.data_ptr()))
+    if computed:
+        _launch_chunks("int8_scale", layout, tables, scales)
+    _launch_chunks("quantize_int8", layout, tables, scales)
+    return q_flat, scales, layout
+
+
+def dequantize_int8_leaves(q_flat: torch.Tensor, scales: torch.Tensor,
+                           layout) -> list:
+    """The inverse of ``quantize_int8_leaves``: q_flat (layout.total,)
+    int8 starting on a 4-byte boundary, scales (N,) float32, on one
+    device -> the N leaves ``q * scale`` as float32 views, with their
+    shapes, of one fresh flat buffer (disjoint: writing one changes no
+    other).  On the card one launch of K2b per ``CAPACITY`` leaves."""
+    name = "dequantize_int8_leaves"
+    if not isinstance(layout, _q.Int8Layout):
+        raise TypeError(f"{name}: layout must come from quantize_int8_leaves")
+    dev = _common_device(name, q_flat, scales)
+    if q_flat.dtype != torch.int8:
+        raise TypeError(f"{name}: q_flat must be int8, got {q_flat.dtype}")
+    if (q_flat.shape != (layout.total,) or not q_flat.is_contiguous()
+            or q_flat.data_ptr() % 4):
+        raise ValueError(f"{name}: q_flat must be a contiguous "
+                         f"({layout.total},) starting on a 4-byte "
+                         f"boundary, got shape {tuple(q_flat.shape)}")
+    _check_scales(name, scales, len(layout))
+    if dev.type == "cpu":
+        return ref.dequantize_int8_leaves(q_flat, scales, layout)
+    with torch.cuda.device(dev):
+        out = _q.aligned_empty(layout.total, torch.float32, dev)
+    src = layout.offsets_u64 + np.uint64(q_flat.data_ptr())
+    dst = 4 * layout.offsets_u64 + np.uint64(out.data_ptr())
+    _launch_chunks("dequantize_int8", layout, layout.tables(src, dst), scales)
+    return layout.views(out)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

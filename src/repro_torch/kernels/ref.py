@@ -9,6 +9,7 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 
@@ -42,6 +43,50 @@ def dequantize_int8(q, scale):
     """q: (P,) int8; scale: 0-d or (1,) float32 -> (P,) float32
     (``q * scale``)."""
     return q.float() * scale
+
+
+# The JAX package writes the scale as ``max / 127``, and XLA compiles a
+# division by a constant into a multiply by its float32 reciprocal; the
+# port multiplies explicitly so that the scales agree bit for bit.
+_INV_QMAX = float(np.float32(1.0) / np.float32(127.0))
+
+
+def int8_scale(x):
+    """Per-tensor symmetric scale ``max|x| / 127`` as a 0-d float32 on
+    x's device (floored so an all-zero tensor round-trips to zeros
+    instead of dividing by 0)."""
+    return torch.clamp_min(x.float().abs().amax(), 1e-12) * _INV_QMAX
+
+
+def int8_scales(leaves):
+    """The scale pass over a tree: ``int8_scale`` of each leaf -> (N,)
+    float32."""
+    return torch.stack([int8_scale(x) for x in leaves])
+
+
+def quantize_int8_leaves(leaves, layout, scales=None):
+    """Each leaf quantized with its scale (``int8_scales`` where none
+    are given) into its segment of one flat int8 buffer of
+    ``layout.total`` elements (the gaps are zero) -> (q_flat, scales)."""
+    if scales is None:
+        scales = int8_scales(leaves)
+    q_flat = torch.zeros(layout.total, dtype=torch.int8,
+                         device=leaves[0].device)
+    for x, s, off in zip(leaves, scales, layout.offsets.tolist()):
+        q_flat[off: off + x.numel()] = quantize_int8(x.reshape(-1), s)
+    return q_flat, scales
+
+
+def dequantize_int8_leaves(q_flat, scales, layout):
+    """Each leaf's segment of ``q_flat`` times its scale, into the same
+    segment of one flat float32 buffer -> the leaves, as views of it
+    with their shapes."""
+    out = torch.zeros(layout.total, dtype=torch.float32,
+                      device=q_flat.device)
+    for s, n, off in zip(scales, layout.numels.tolist(),
+                         layout.offsets.tolist()):
+        out[off: off + n] = dequantize_int8(q_flat[off: off + n], s)
+    return layout.views(out)
 
 
 def flash_attention(q, k, v, *, causal=True, window=0):

@@ -175,6 +175,42 @@ def test_int8_all_zero_leaf_roundtrips_to_zeros():
                                                                  np.float32)))
 
 
+@pytest.mark.parametrize("offset", [0, 1, 2, 3])
+def test_int8_tree_route_matches_per_leaf_route_and_reference(offset):
+    """The kernel route quantizes the whole tree at once, over one flat
+    layout; with leaves that are views of one flat vector (as K1 returns
+    the master) it still equals the per-leaf route and the JAX package's
+    Pallas roundtrip bit for bit."""
+    from repro.comm.quantize import _roundtrip_pallas
+    tree = mixed_tree()
+    flat = torch.zeros(offset + sum(v.size for v in tree.values()))
+    views, off = {}, offset
+    for k, v in tree.items():
+        views[k] = flat[off: off + v.size].view(v.shape)
+        views[k].copy_(torch.from_numpy(v))
+        off += v.size
+    ours = make_codec("int8:kernel").roundtrip(views)
+    per_leaf = make_codec("int8:torch").roundtrip(views)
+    theirs = _roundtrip_pallas({k: jnp.asarray(v) for k, v in tree.items()})
+    assert_trees_bitwise(ours, per_leaf)
+    assert_trees_bitwise(ours, {k: np.asarray(v) for k, v in theirs.items()})
+    assert all(ours[k].shape == tree[k].shape for k in tree)
+    assert all(n == 0 for n in ops.LAUNCHES.values())    # CPU: no kernel
+
+
+def test_int8_tree_route_outputs_are_independent():
+    """The reconstructed leaves are views of one flat buffer, in disjoint
+    segments: writing one changes no other, nor the input."""
+    tree = {k: torch.from_numpy(v) for k, v in mixed_tree(1).items()}
+    inputs = {k: v.clone() for k, v in tree.items()}
+    out = make_codec("int8:kernel").roundtrip(tree)
+    kept = {k: v.clone() for k, v in out.items()}
+    out["b"].fill_(7.0)
+    assert all(torch.equal(out[k], kept[k]) for k in out if k != "b")
+    assert all(torch.equal(tree[k], inputs[k]) for k in tree)
+    assert len({v.untyped_storage().data_ptr() for v in out.values()}) == 1
+
+
 # ---------------------------------------------------------------------------
 # every codec's roundtrip and wire bytes against the JAX package
 # ---------------------------------------------------------------------------

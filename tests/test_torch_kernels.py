@@ -36,6 +36,7 @@ import numpy as np  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
 from repro_torch.kernels import expert_gemm as egemm  # noqa: E402
 from repro_torch.kernels import flash_attention as flash  # noqa: E402
+from repro_torch.kernels import quantize as kq  # noqa: E402
 
 TOL = 1e-6
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}    # atol: 5x
@@ -389,6 +390,164 @@ def test_int8_wrappers_reject_what_the_kernels_do_not_take(fn, case):
     assert ops.LAUNCHES[fn] == 0
 
 
+# ---------------------------------------------------------------------------
+# int8 over a tree: the layout of the flat buffers and the tree wrappers
+# ---------------------------------------------------------------------------
+
+LAYOUT_SIZES = [1, 3, 15, 16, 17, 8193]
+
+
+def flat_views(sizes, offset, seed=0):
+    """Leaves as K1's unflatten hands them back: views of one flat
+    float32 vector, the first at element ``offset``."""
+    rng = np.random.default_rng(seed)
+    flat = torch.from_numpy(
+        rng.normal(size=offset + sum(sizes)).astype(np.float32))
+    out, off = [], offset
+    for n in sizes:
+        out.append(flat[off: off + n])
+        off += n
+    return out
+
+
+@pytest.mark.parametrize("offset", [0, 1, 2, 3])
+def test_int8_layout_covers_every_element_once(offset):
+    leaves = flat_views(LAYOUT_SIZES, offset)
+    lay = kq.layout_of(leaves)
+    covered = np.zeros(lay.total, np.int64)
+    for x, off, head, n in zip(leaves, lay.offsets.tolist(),
+                               lay.heads.tolist(), lay.numels.tolist()):
+        assert n == x.numel()
+        covered[off: off + n] += 1
+        # the segment is congruent, mod 4, to its source's misalignment,
+        # and source, int8 and float32 buffers align at element ``head``
+        # (a 128-byte line of both flat buffers)
+        assert (off - (x.data_ptr() % 16) // 4) % 4 == 0
+        assert 0 <= head < 4 and (off + head) % 128 == 0
+        assert (x.data_ptr() + 4 * head) % 16 == 0
+        assert head + kq.TILE * kq.tiles_of(n, head) >= n
+    assert covered.max() == 1 and covered.sum() == sum(LAYOUT_SIZES)
+    assert lay.total == int(lay.offsets[-1] + lay.numels[-1])
+    assert lay.total < sum(LAYOUT_SIZES) + 128 * len(LAYOUT_SIZES)
+    tiles = [kq.tiles_of(n, h) for n, h in zip(lay.numels, lay.heads)]
+    assert lay.chunks == [(0, len(LAYOUT_SIZES), sum(tiles))]
+    np.testing.assert_array_equal(lay.first_tiles[0],
+                                  np.cumsum([0] + tiles[:-1]))
+    assert kq.layout_of(leaves) is lay            # cached by structure
+
+
+def test_int8_layout_chunks_a_tree_over_capacity():
+    n = 2 * kq.CAPACITY + 3
+    leaves = flat_views([1 + i % 40 for i in range(n)], 1)
+    lay = kq.layout_of(leaves)
+    assert [(a, b) for a, b, _ in lay.chunks] == [
+        (0, kq.CAPACITY), (kq.CAPACITY, 2 * kq.CAPACITY),
+        (2 * kq.CAPACITY, n)]
+    src = np.array([x.data_ptr() for x in leaves], np.uint64)
+    dst = lay.offsets_u64 + np.uint64(1 << 20)
+    tables = lay.tables(src, dst)
+    assert len(tables) == 3
+    assert kq._ONE.size == kq._table_bytes(1) == 40    # LeafTable<1>
+    for (a, b, tiles), ft, table in zip(lay.chunks, lay.first_tiles,
+                                        tables):
+        k = b - a
+        assert table.nbytes == kq._table_bytes(kq.CAPACITY) == 8200
+        col = lambda name, m=k: kq._column(table, kq.CAPACITY, name, m)
+        np.testing.assert_array_equal(col("src"), src[a:b])
+        np.testing.assert_array_equal(col("dst"), dst[a:b])
+        np.testing.assert_array_equal(col("n"), lay.numels[a:b])
+        np.testing.assert_array_equal(col("head"), lay.heads[a:b])
+        np.testing.assert_array_equal(col("first_tile"), ft)
+        assert col("count", 1)[0] == k
+        assert tiles == int(ft[-1]) + kq.tiles_of(int(lay.numels[b - 1]),
+                                                  int(lay.heads[b - 1]))
+    q, scales, lay2 = ops.quantize_int8_leaves(leaves)
+    outs = ops.dequantize_int8_leaves(q, scales, lay2)
+    assert lay2 is lay and len(outs) == n
+    for x, o in zip(leaves, outs):
+        s = ref.int8_scale(x)
+        assert torch.equal(o, ref.dequantize_int8(ref.quantize_int8(x, s), s))
+
+
+@pytest.mark.parametrize("offset", [0, 1, 3])
+def test_int8_tree_route_matches_per_leaf_route(offset):
+    leaves = flat_views(LAYOUT_SIZES + [12, 7], offset, seed=offset)
+    leaves[-2] = leaves[-2].view(3, 4)              # leaves keep shapes
+    leaves[-1].zero_()                              # an all-zero leaf
+    q, scales, lay = ops.quantize_int8_leaves(leaves)
+    outs = ops.dequantize_int8_leaves(q, scales, lay)
+    assert q.dtype == torch.int8 and q.shape == (lay.total,)
+    assert scales.dtype == torch.float32 and scales.shape == (len(leaves),)
+    for x, s, off, o in zip(leaves, scales, lay.offsets.tolist(), outs):
+        s_leaf = ref.int8_scale(x)
+        q_leaf = ref.quantize_int8(x.reshape(-1), s_leaf)
+        assert torch.equal(s.view(torch.int32), s_leaf.view(torch.int32))
+        assert torch.equal(q[off: off + x.numel()], q_leaf)
+        assert o.shape == x.shape and o.dtype == torch.float32
+        assert torch.equal(o.reshape(-1).view(torch.int32),
+                           ref.dequantize_int8(q_leaf, s_leaf).view(
+                               torch.int32))
+    assert not outs[-1].any()
+    assert torch.equal(ops.int8_scales(leaves).view(torch.int32),
+                       scales.view(torch.int32))
+    # given scales: ties and clipping on a power-of-two grid
+    given = torch.full((len(leaves),), 2.0 ** -6)
+    q2, s2, _ = ops.quantize_int8_leaves(leaves, given)
+    assert s2 is given
+    for x, off in zip(leaves, lay.offsets.tolist()):
+        assert torch.equal(q2[off: off + x.numel()],
+                           ref.quantize_int8(x.reshape(-1), given[0]))
+    assert all(n == 0 for n in ops.LAUNCHES.values())    # CPU: no kernel
+
+
+@pytest.mark.parametrize("case", ["not_a_list", "no_leaves", "dtype",
+                                  "contiguous", "empty_leaf",
+                                  "mixed_devices", "misaligned",
+                                  "scales_dtype", "scales_shape"])
+def test_int8_tree_quantize_rejects_what_the_kernels_do_not_take(case):
+    """``quantize_int8_leaves`` and, for the leaves' own faults, the scale
+    pass ``int8_scales``."""
+    x = torch.ones(4, 5)
+    odd = torch.frombuffer(bytearray(68), dtype=torch.float32, offset=1,
+                           count=16)             # 1 byte past a boundary
+    leaves, scales = {
+        "not_a_list": (x, None),
+        "no_leaves": ([], None),
+        "dtype": ([x, x.double()], None),
+        "contiguous": ([x, x.t()], None),
+        "empty_leaf": ([x, x[:0]], None),
+        "mixed_devices": ([x, x.to("meta")], None),
+        "misaligned": ([x, odd], None),
+        "scales_dtype": ([x, x], torch.ones(2, dtype=torch.float64)),
+        "scales_shape": ([x, x], torch.ones(3)),
+    }[case]
+    with pytest.raises((TypeError, ValueError)):
+        ops.quantize_int8_leaves(leaves, scales)
+    if scales is None:
+        with pytest.raises((TypeError, ValueError)):
+            ops.int8_scales(leaves)
+    assert ops.LAUNCHES["int8_scale"] == ops.LAUNCHES["quantize_int8"] == 0
+
+
+@pytest.mark.parametrize("case", ["layout", "q_dtype", "q_shape",
+                                  "q_misaligned", "scales_dtype",
+                                  "scales_shape", "mixed_devices"])
+def test_int8_tree_dequantize_rejects_what_the_kernels_do_not_take(case):
+    q, scales, lay = ops.quantize_int8_leaves([torch.ones(5),
+                                               torch.ones(3, 3)])
+    shifted = torch.zeros(lay.total + 1, dtype=torch.int8)[1:]
+    args = {"layout": (q, scales, None),
+            "q_dtype": (q.int(), scales, lay),
+            "q_shape": (q[:-1], scales, lay),
+            "q_misaligned": (shifted, scales, lay),
+            "scales_dtype": (q, scales.double(), lay),
+            "scales_shape": (q, scales[:1], lay),
+            "mixed_devices": (q, scales.to("meta"), lay)}[case]
+    with pytest.raises((TypeError, ValueError)):
+        ops.dequantize_int8_leaves(*args)
+    assert ops.LAUNCHES["dequantize_int8"] == 0
+
+
 @pytest.mark.parametrize("dtype,d,aligned,expected", [
     (torch.bfloat16, 64, True, "tensor_core"),
     (torch.bfloat16, 80, True, "tensor_core"),
@@ -506,6 +665,90 @@ def test_cuda_int8_kernels_match_plain_version(cuda, p):
     assert torch.equal(d.view(torch.int32),
                        ref.dequantize_int8(q, scale).view(torch.int32))
     assert int(q[-1]) == 127               # 640 clips
+
+
+def int8_tree_case(case, device):
+    """(leaves on ``device``, given scales or None) of one tree check;
+    the leaves are views of one flat vector, as K1 hands them back."""
+    rng = np.random.default_rng(17)
+    step = np.float32(2.0 ** -6)
+    if case.startswith("views"):
+        sizes, offset = LAYOUT_SIZES + [100_003], int(case[-1])
+    elif case == "over_capacity":
+        sizes, offset = rng.integers(1, 3000, 600).tolist(), 1
+    else:
+        sizes, offset = [1, 3, 33, 4100, 70_001], 2
+    flat = rng.normal(size=offset + sum(sizes)).astype(np.float32)
+    starts = offset + np.cumsum([0] + sizes[:-1])
+    given = None
+    if case == "ties_and_clipping":      # |k| up to 140 clips at 127
+        flat = ((rng.integers(-140, 140, flat.size) + 0.5) * step
+                ).astype(np.float32)
+        given = torch.full((len(sizes),), step, device=device)
+    elif case == "own_scale_ties":       # max|x| = 127 step: scale = step
+        flat = ((rng.integers(-127, 127, flat.size) + 0.5) * step
+                ).astype(np.float32)
+        flat[offset::5] = 0.0
+        flat[starts] = 127 * step
+    elif case == "zero_and_one_element":
+        flat[starts[1]: starts[3]] = 0.0    # the 3- and 33-element leaves
+    dev_flat = torch.from_numpy(flat).to(device)
+    return [dev_flat[a: a + n] for a, n in zip(starts.tolist(), sizes)], \
+        given
+
+
+INT8_TREE_CASES = ["views_1", "views_2", "views_3", "over_capacity",
+                   "ties_and_clipping", "own_scale_ties",
+                   "zero_and_one_element"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", INT8_TREE_CASES)
+def test_cuda_int8_tree_kernels_match_plain_version(cuda, case):
+    leaves, given = int8_tree_case(case, cuda)
+    before = dict(ops.LAUNCHES)
+    q, scales, layout = ops.quantize_int8_leaves(leaves, given)
+    outs = ops.dequantize_int8_leaves(q, scales, layout)
+    torch.cuda.synchronize()
+    chunks = len(layout.chunks)
+    assert chunks == (3 if case == "over_capacity" else 1)
+    # 3 launches a chunk: the scale pass (unless given), K2a, K2b
+    assert {k: ops.LAUNCHES[k] - before[k] for k in before} == {
+        **dict.fromkeys(before, 0), "quantize_int8": chunks,
+        "dequantize_int8": chunks,
+        "int8_scale": 0 if given is not None else chunks}
+    q_max = 0
+    for i, (x, off, o) in enumerate(zip(leaves, layout.offsets.tolist(),
+                                        outs)):
+        s = ref.int8_scale(x) if given is None else given[i]
+        q_leaf = ref.quantize_int8(x, s)
+        assert torch.equal(scales[i].view(torch.int32), s.view(torch.int32))
+        assert torch.equal(q[off: off + x.numel()], q_leaf)
+        assert torch.equal(o.view(torch.int32),
+                           ref.dequantize_int8(q_leaf, s).view(torch.int32))
+        q_max = max(q_max, int(q_leaf.int().abs().max()))
+    if case == "ties_and_clipping":
+        assert q_max == 127
+    if case == "own_scale_ties":
+        assert all(float(s) == 2.0 ** -6 for s in scales)
+    if case == "zero_and_one_element":
+        assert leaves[0].numel() == 1
+        assert not outs[1].any() and not outs[2].any()
+
+
+@pytest.mark.cuda
+def test_cuda_int8_tree_kernels_repeat_bit_for_bit(cuda):
+    leaves, _ = int8_tree_case("over_capacity", cuda)
+    first = ops.quantize_int8_leaves(leaves)
+    again = ops.quantize_int8_leaves(leaves)
+    outs = [ops.dequantize_int8_leaves(*r) for r in (first, again)]
+    torch.cuda.synchronize()
+    assert torch.equal(first[1].view(torch.int32), again[1].view(torch.int32))
+    for x, off in zip(leaves, first[2].offsets.tolist()):
+        seg = slice(off, off + x.numel())
+        assert torch.equal(first[0][seg], again[0][seg])
+    assert all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+               for a, b in zip(*outs))
 
 
 @pytest.mark.cuda
