@@ -11,8 +11,9 @@ Phases, each fatal on failure:
 2. build: every CUDA kernel of the main path, from ``csrc/`` with nvcc,
    one nvcc per source, all started together (ptxas's report of
    registers and spills logged); the tensor-core flash attention's
-   registers, local and shared memory per variant, and the tensor-core
-   expert GEMM's, with no local memory (no spill);
+   registers, local and shared memory per variant, the tensor-core
+   expert GEMM's and those of the SSD scan's stage kernels, with no local
+   memory (no spill);
 3. check: each kernel against its plain PyTorch version on the card, at
    the main path's shapes and at ragged ones: fill-aggregation within
    rtol = atol = 1e-6; int8 quantize/dequantize bit for bit, per vector
@@ -58,8 +59,12 @@ Phases, each fatal on failure:
    atol 1e-4 in float32, 2^-7 / 1e-3 in bfloat16: one rounding of the
    output), each call on the kernel its dtype and head dim select (bf16
    with D % 8 == 0: the tensor-core kernel; else the CUDA-core one); K4
-   at the sweep's shapes, two P tiles and mamba2-780m's prefill (rtol =
-   atol = 2e-4);
+   at the sweep's shapes, two P tiles, mamba2-780m's prefill, one chunk,
+   32 chunks, no decay and strong decay (rtol = atol = 2e-4), each call
+   one launch of each of its three stage kernels, and two calls equal
+   bit for bit; without decay at 4 chunks and N 128, where the plain
+   float32 recurrence itself drifts past 2e-4 from a float64 one, the
+   kernel within the same limits of the float64 recurrence;
    K5 in float32 and bfloat16 at the JAX sweep's shapes, ragged C = 8,
    100 and 1256 (F 72, D 200), granite-moe-1b-a400m's prefill (wi/wg
    and wo) and decode shapes, and (2, 64, 100, 70), whose rows TMA
@@ -71,8 +76,9 @@ Phases, each fatal on failure:
    launches) against the einsum ``moe.expert_ffn`` at granite's prefill
    shape; each timed at its serving shape beside its bound and its plain
    version, K3 also beside ``scaled_dot_product_attention`` (at qwen's
-   and granite's shapes and at window 256) and K5 beside ``torch.bmm``
-   (at granite's wi and wo shapes);
+   and granite's shapes and at window 256), K4 beside the torch route's
+   chunked scan, and K5 beside ``torch.bmm`` (at granite's wi and wo
+   shapes);
 10. the serving path at full width, bf16, seeded random weights on the
    card, 4 requests: for qwen1.5-0.5b (1024-token prompt; also with
    window 256), mamba2-780m (1000-token prompt: chunk padding) and
@@ -80,7 +86,8 @@ Phases, each fatal on failure:
    ``make_prefill_step`` on the kernel route (launch counts zeroed
    before and read after: per layer one K3, one K4, or one K3 and three
    K5; every K3 and K5 of a bf16 prefill on its tensor-core kernel, of a
-   float32 one on its CUDA-core kernel) against the torch route, within
+   float32 one on its CUDA-core kernel; one launch of each of K4's stage
+   kernels per K4 call) against the torch route, within
    LOGIT_TOL of the logits' largest
    magnitude (15 % in bf16; 0.1 % in a float32 prefill at the same
    widths and depth).  For granite also: every MoE layer's input from
@@ -127,10 +134,12 @@ from repro_torch.kernels import build, ops, ref  # noqa: E402
 from repro_torch.kernels import expert_gemm as egemm  # noqa: E402
 from repro_torch.kernels import flash_attention as flash  # noqa: E402
 from repro_torch.kernels import quantize as kq  # noqa: E402
+from repro_torch.kernels import ssd_scan as kssd  # noqa: E402
 from repro_torch.launch.serve import greedy_generate, make_decode_step, \
     make_prefill_step  # noqa: E402
 from repro_torch.models import moe  # noqa: E402
 from repro_torch.models import transformer as tr  # noqa: E402
+from repro_torch.models.ssm import ssd_chunked_torch  # noqa: E402
 
 TOL = 1e-6              # <= 8 float32 terms summed in another order, FMA
 MASTER_TOL = 1e-4       # route-to-route gap of the final master
@@ -538,7 +547,7 @@ def time_tree(card: str, api) -> dict:
 
 def zero_launches() -> None:
     for counts in (ops.LAUNCHES, flash.VARIANT_LAUNCHES,
-                   egemm.VARIANT_LAUNCHES):
+                   egemm.VARIANT_LAUNCHES, kssd.STAGE_LAUNCHES):
         for k in counts:
             counts[k] = 0
 
@@ -558,7 +567,8 @@ def expect_variants(label: str, cfg, per_prefill: dict) -> None:
     """The K3 and K5 launches of one prefill by kernel: all on the
     tensor-core kernels in bf16 (every config's head dim and expert
     widths are multiples of 8), all on the CUDA-core kernels in
-    float32."""
+    float32; and K4's: one launch of each of its stage kernels per
+    call."""
     which = "tensor_core" if cfg.torch_dtype == torch.bfloat16 \
         else "cuda_core"
     for name, counts in (("flash_attention", flash.VARIANT_LAUNCHES),
@@ -570,6 +580,12 @@ def expect_variants(label: str, cfg, per_prefill: dict) -> None:
         if got != expected:
             raise AssertionError(f"{label}: {name} kernels {got}, "
                                  f"expected {expected}")
+    expected = dict.fromkeys(kssd.STAGES, per_prefill.get("ssd_scan", 0))
+    got = dict(kssd.STAGE_LAUNCHES)
+    log(f"{label} ssd_scan launches by stage kernel: {got}")
+    if got != expected:
+        raise AssertionError(f"{label}: ssd_scan stage kernels {got}, "
+                             f"expected {expected}")
 
 
 def full_width_clients():
@@ -641,8 +657,25 @@ FLASH_TIMED = [(QWEN_ATTN, 0), (GRANITE_ATTN, 0), (QWEN_ATTN, 256)]
 # 256), whose registers, local memory and shared memory are reported
 TC_HEAD_DIMS = (64, 128, 192, 256)
 FLASH_MASKS = [(True, 0), (True, 64), (True, 256), (False, 0)]
-SSD_CASES = [(2, 4, 64, 3, 32, 16), (1, 2, 128, 2, 64, 64),
-             (1, 8, 32, 1, 16, 8), (1, 2, 128, 2, 80, 64), MAMBA_SSD]
+# K4's cases as (shape, decay): a = -|normal| x decay.  The sweep's
+# shapes, two P tiles, mamba2's prefill; then one chunk (the state pass
+# only hands the local state on), 32 chunks (4096 tokens at B = 1), no
+# decay (a = 0) and strong decay (a about -50 a step, where exp(-acum)
+# overflows float32 within two steps).  Without decay nothing forgets, so
+# |y| grows with the tokens and the state size, and with it the float32
+# recurrence's own distance from a float64 one (check_ssd logs both the
+# plain version's and the kernel's): at 2 chunks and N 64 that stays
+# inside SSD_TOL
+SSD_CASES = [((2, 4, 64, 3, 32, 16), 0.1), ((1, 2, 128, 2, 64, 64), 0.1),
+             ((1, 8, 32, 1, 16, 8), 0.1), ((1, 2, 128, 2, 80, 64), 0.1),
+             (MAMBA_SSD, 0.1), ((2, 1, 128, 48, 64, 128), 0.1),
+             ((1, 32, 128, 48, 64, 128), 0.1), ((1, 2, 128, 4, 64, 64), 0.0),
+             ((2, 8, 128, 4, 80, 128), 60.0)]
+# no decay at 4 chunks and N 128: there |y| reaches the thousands, the
+# plain float32 recurrence and the kernel sum in other orders and differ
+# by more than SSD_TOL, so the float64 recurrence is the witness that the
+# kernel is held to, within SSD_TOL
+SSD_NO_DECAY = (1, 4, 128, 4, 64, 128)
 REQUESTS, NEW_TOKENS, GREEDY_PROMPT = 4, 16, 64
 # arch -> (prompt length, windows, kernel launches per layer per prefill)
 SERVE = {"qwen1.5-0.5b": (1024, (0, 256), {"flash_attention": 1}),
@@ -680,10 +713,10 @@ def flash_inputs(b, s, h, kh, d, dtype, seed):
                  for shape in ((b, s, h, d), (b, s, kh, d), (b, s, kh, d)))
 
 
-def ssd_inputs(b, nc, q, h, p, n, seed):
+def ssd_inputs(b, nc, q, h, p, n, seed, decay=0.1):
     g = torch.Generator(device="cuda").manual_seed(seed)
     xs = torch.randn((b, nc, q, h, p), device="cuda", generator=g)
-    a = -torch.randn((b, nc, q, h), device="cuda", generator=g).abs() * 0.1
+    a = -torch.randn((b, nc, q, h), device="cuda", generator=g).abs() * decay
     bm = torch.randn((b, nc, q, n), device="cuda", generator=g)
     cm = torch.randn((b, nc, q, n), device="cuda", generator=g)
     return xs, a, bm, cm
@@ -726,21 +759,82 @@ def check_flash() -> float:
     return worst
 
 
+def recurrence64(xs, a, bm, cm):
+    """(y, final state) of ``ref.ssd_scan``'s recurrence, in float64."""
+    b, nc, q, h, p = xs.shape
+    n = bm.shape[-1]
+    x = xs.reshape(b, nc * q, h, p).double()
+    a_ = a.reshape(b, nc * q, h).double()
+    b_ = bm.reshape(b, nc * q, n).double()
+    c_ = cm.reshape(b, nc * q, n).double()
+    state = torch.zeros((b, h, p, n), dtype=torch.float64, device=xs.device)
+    ys = []
+    for t in range(nc * q):
+        state = (state * torch.exp(a_[:, t])[:, :, None, None]
+                 + torch.einsum("bhp,bn->bhpn", x[:, t], b_[:, t]))
+        ys.append(torch.einsum("bn,bhpn->bhp", c_[:, t], state))
+    return torch.stack(ys, dim=1).reshape(b, nc, q, h, p), state
+
+
+def gap64(y, st, y64, s64) -> str:
+    """Largest |float32 - float64| over y and the final state, and the
+    largest share of SSD_TOL's limit (atol + rtol |float64|) it takes."""
+    pairs = ((y.double(), y64), (st.double(), s64))
+    gap = max(float((u - v).abs().max()) for u, v in pairs)
+    share = max(float(((u - v).abs() / (SSD_TOL + SSD_TOL * v.abs())).max())
+                for u, v in pairs)
+    return f"{gap!r} ({share!r} of the limit)"
+
+
 def check_ssd() -> float:
+    """K4 against its plain version at every case; each call launches
+    each of its stage kernels once; two calls give the same bits.
+    Without decay, the kernel's and the plain version's distance from
+    the float64 recurrence are logged, and at SSD_NO_DECAY the kernel is
+    held to the float64 recurrence within SSD_TOL."""
     worst = 0.0
-    for i, shape in enumerate(SSD_CASES):
-        args = ssd_inputs(*shape, seed=300 + i)
+    for i, (shape, decay) in enumerate(SSD_CASES):
+        args = ssd_inputs(*shape, seed=300 + i, decay=decay)
+        y_p, s_p = ref.ssd_scan(*args)
+        y_t, _ = ssd_chunked_torch(*args)      # the torch route, for scale
+        drift = (f"; torch route vs plain "
+                 f"{float((y_t - y_p).abs().max())!r}")
+        del y_t
+        before = dict(kssd.STAGE_LAUNCHES)
         y, st = ops.ssd_scan(*args)
         torch.cuda.synchronize()
-        y_p, s_p = ref.ssd_scan(*args)
+        ran = {k: kssd.STAGE_LAUNCHES[k] - before[k] for k in before}
+        if ran != dict.fromkeys(kssd.STAGES, 1):
+            raise AssertionError(f"ssd_scan {shape}: ran {ran}")
+        if decay == 0.0:
+            y64, s64 = recurrence64(*args)
+            drift += (f"; plain vs float64 {gap64(y_p, s_p, y64, s64)}, "
+                      f"kernel vs float64 {gap64(y, st, y64, s64)}")
+            del y64, s64
         torch.testing.assert_close(y, y_p, rtol=SSD_TOL, atol=SSD_TOL)
         torch.testing.assert_close(st, s_p, rtol=SSD_TOL, atol=SSD_TOL)
         err = max(float((y - y_p).abs().max()),
                   float((st - s_p).abs().max()))
         worst = max(worst, err)
-        log(f"check ssd_scan {shape}: max |kernel - plain| = {err!r} "
-            f"(max |y| {float(y_p.abs().max())!r})")
-        del args, y, st, y_p, s_p
+        log(f"check ssd_scan {shape} decay {decay}: max |kernel - plain| = "
+            f"{err!r} (max |y| {float(y_p.abs().max())!r}, max |state| "
+            f"{float(s_p.abs().max())!r}{drift})")
+        y2, st2 = ops.ssd_scan(*args)
+        if not (torch.equal(y.view(torch.int32), y2.view(torch.int32))
+                and torch.equal(st.view(torch.int32), st2.view(torch.int32))):
+            raise AssertionError(f"ssd_scan {shape}: two calls differ")
+        del args, y_p, s_p, y, st, y2, st2
+    args = ssd_inputs(*SSD_NO_DECAY, seed=300 + len(SSD_CASES), decay=0.0)
+    y64, s64 = recurrence64(*args)
+    y_p, s_p = ref.ssd_scan(*args)
+    y, st = ops.ssd_scan(*args)
+    err = max(float((y - y_p).abs().max()), float((st - s_p).abs().max()))
+    log(f"check ssd_scan {SSD_NO_DECAY} decay 0.0 against float64: kernel "
+        f"{gap64(y, st, y64, s64)}, plain {gap64(y_p, s_p, y64, s64)} (max "
+        f"|kernel - plain| {err!r}, max |y| {float(y64.abs().max())!r})")
+    torch.testing.assert_close(y.double(), y64, rtol=SSD_TOL, atol=SSD_TOL)
+    torch.testing.assert_close(st.double(), s64, rtol=SSD_TOL, atol=SSD_TOL)
+    del args, y64, s64, y_p, s_p, y, st
     torch.cuda.empty_cache()
     return worst
 
@@ -817,12 +911,25 @@ def tensor_core_resources() -> dict:
     return res
 
 
+def ssd_resources() -> dict:
+    """Registers a thread, local memory and shared memory of each of K4's
+    stage kernels, from the CUDA runtime; raises on any local memory
+    (spills)."""
+    res = kssd.attributes()
+    log(f"ssd_scan stage kernels: {res}")
+    if any(r["local_bytes"] for r in res.values()):
+        raise AssertionError(f"ssd_scan stage kernels spill: {res}")
+    return res
+
+
 def time_ssd(card: str) -> dict:
-    """K4 at mamba2-780m's prefill shape.  Bound: inputs read and outputs
-    written once; float32 work as this data needs it — C Bᵀ over the
-    causal triangle once per (batch, chunk) (it does not depend on the
-    head), and per (batch, head, chunk) the triangle of ((C Bᵀ) ∘ L) X,
-    C Sᵀ and the state update — at the float32 CUDA-core rate."""
+    """K4 at mamba2-780m's prefill shape, beside the torch route's
+    chunked scan (``ssd_chunked_torch``, several launches, so not a
+    library call) on the same inputs.  Bound: inputs read and
+    outputs written once; float32 work as this data needs it — C Bᵀ over
+    the causal triangle once per (batch, chunk) (it does not depend on
+    the head), and per (batch, head, chunk) the triangle of ((C Bᵀ) ∘ L)
+    X, C Sᵀ and the state update — at the float32 CUDA-core rate."""
     b, nc, q, h, p, n = MAMBA_SSD
     args = ssd_inputs(*MAMBA_SSD, seed=10)
     nbytes = 4 * (2 * b * nc * q * h * p + b * nc * q * h
@@ -831,16 +938,21 @@ def time_ssd(card: str) -> dict:
     flops = (b * nc * 2 * tri * n
              + b * nc * h * (2 * tri * p + 2 * q * n * p + 2 * q * p * n
                              + 2 * p * n))
-    res = {"ms": device_ms(lambda: ops.ssd_scan(*args), 10),
+    res = {"ms": device_ms(lambda: ops.ssd_scan(*args), 20),
            # the plain recurrence is ~5000 small launches: host-bound
            "plain_ms": device_ms(lambda: ref.ssd_scan(*args), 1, rounds=3),
            "library_ms": None,      # no single PyTorch call computes it
-           **bound(nbytes, flops, FP32_FLOPS)}
+           # ~40 launches a call: a longer spin hides their dispatch
+           "torch_route_ms": device_ms(
+               lambda: ssd_chunked_torch(*args), 10, spin=2_000_000),
+           **bound(nbytes, flops, FP32_FLOPS),
+           "stages": list(kssd.STAGES)}
     call_ms = median_ms(lambda: ops.ssd_scan(*args), 10)
     log(f"timing ssd_scan {MAMBA_SSD} on {card}: kernel {res['ms']!r} ms "
         f"(one call with its dispatch {call_ms!r} ms), bound "
         f"{res['bound_ms']!r} ms ({res['bound_by']}, {nbytes} B, {flops} "
-        f"flop), plain {res['plain_ms']!r} ms")
+        f"flop), torch route "
+        f"{res['torch_route_ms']!r} ms, plain {res['plain_ms']!r} ms")
     del args
     torch.cuda.empty_cache()
     return res
@@ -1210,6 +1322,7 @@ def main() -> int:
                 log(f"  {name}: {line.strip()}")
     tc_resources = tensor_core_resources()
     gemm_resources = expert_gemm_resources()
+    ssd_stage_resources = ssd_resources()
 
     # 3. each kernel against its plain version (these launches don't count)
     cfg = get_config("cifar-supernet")
@@ -1385,6 +1498,7 @@ def main() -> int:
         "replaces": "src/repro/kernels/ssd_scan.py:66",
         "launches": serve_launches["mamba2-780m"]["ssd_scan"],
         "max_abs_err": ssd_err, **ssd_timing,
+        "stage_resources": ssd_stage_resources,
     }, {
         "name": "expert_gemm", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/expert_gemm.cu",

@@ -270,7 +270,8 @@ def ssd_scan(xs: torch.Tensor, a: torch.Tensor, bm: torch.Tensor,
              cm: torch.Tensor, initial_state=None):
     """xs: (B, NC, Q, H, P); a: (B, NC, Q, H); bm, cm: (B, NC, Q, N); all
     float32, contiguous -> (y (B, NC, Q, H, P), final state (B, H, P,
-    N)), float32 (kernel K4).  The state starts at zero: a non-None
+    N)), float32 (kernel K4: one call launches its stage kernels,
+    ``kernels/ssd_scan.py``).  The state starts at zero: a non-None
     ``initial_state`` raises, as the TPU kernel asserts.  Q and N are at
     most 128."""
     if initial_state is not None:

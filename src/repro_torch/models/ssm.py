@@ -111,9 +111,22 @@ def ssd_chunked(x, dt, a_head, b_mat, c_mat, chunk=CHUNK,
 
     if backend == "kernel":
         y, final = kops.ssd_scan(xs, a, bm, cm, initial_state)
-        y = y.reshape(bsz, s, h, p)[:, :s_orig]
-        return y.to(x.dtype), final
+    else:
+        y, final = ssd_chunked_torch(xs, a, bm, cm, initial_state)
+    y = y.reshape(bsz, s, h, p)[:, :s_orig]
+    return y.to(x.dtype), final
 
+
+def ssd_chunked_torch(xs, a, bm, cm, initial_state=None):
+    """The chunked scan as einsums, on K4's layout: xs (B, NC, Q, H, P),
+    a (B, NC, Q, H), bm and cm (B, NC, Q, N), float32 -> (y (B, NC, Q,
+    H, P), final state (B, H, P, N)), from ``initial_state`` (zero if
+    None).  The stages K4's kernels implement: the diagonal blocks
+    ((C Bᵀ) ∘ L) X and each chunk's local final state in parallel over
+    the chunks, a sequential pass over the chunks for the state entering
+    each, then that state's share of the outputs."""
+    bsz, nc, _, h, p = xs.shape
+    n = bm.shape[-1]
     a_cum = torch.cumsum(a, dim=2)                        # (b, c, q, h)
     # 1) intra-chunk (diagonal blocks): ((C Bᵀ) ∘ L) X
     l_mat = torch.exp(segsum(a.transpose(-1, -2)))        # (b, c, h, q, k)
@@ -126,7 +139,7 @@ def ssd_chunked(x, dt, a_head, b_mat, c_mat, chunk=CHUNK,
     # 3) inter-chunk recurrence, emitting the state entering each chunk
     chunk_decay = torch.exp(a_cum[:, :, -1, :])            # (b, c, h)
     carry = (torch.zeros((bsz, h, p, n), dtype=torch.float32,
-                         device=x.device) if initial_state is None
+                         device=xs.device) if initial_state is None
              else initial_state.float())
     prev = []
     for c in range(nc):
@@ -136,8 +149,7 @@ def ssd_chunked(x, dt, a_head, b_mat, c_mat, chunk=CHUNK,
     # 4) state -> output within each chunk: (C Sᵀ) ∘ exp(a_cum)
     y_off = torch.einsum("bcqn,bchpn->bcqhp", cm, prev_states) \
         * torch.exp(a_cum)[..., None]
-    y = (y_diag + y_off).reshape(bsz, s, h, p)[:, :s_orig]
-    return y.to(x.dtype), carry
+    return y_diag + y_off, carry
 
 
 def ssm_forward(p, x, cfg, *, backend="kernel"):

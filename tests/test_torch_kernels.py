@@ -1,12 +1,17 @@
 """repro_torch kernels: the plain versions of fill-aggregation, flash
 attention, the SSD chunk scan and the grouped expert GEMM against the
 JAX package (its pure-jnp oracles and its Pallas kernels in interpret
-mode), both Algorithm 3 routes, the wrappers' checks, flash attention's
-and the expert GEMM's choice of kernel, the build's cache key, the
-split-P product of the tensor-core flash attention, and — on a CUDA card
-only — the hand-written kernels (fill-aggregation, int8 quantize and
-dequantize, flash attention on both its kernels, SSD chunk scan, expert
-GEMM on its three kernels) against their plain versions.
+mode), the chunked scan's stages as the torch route computes them
+(``ssd_chunked_torch``: one chunk, no decay, strong decay, a padded
+tail, an initial state), both Algorithm 3 routes, the wrappers' checks,
+flash attention's and the expert GEMM's choice of kernel, the SSD
+scan's stage table, the build's cache key, the split-P product of the
+tensor-core flash attention, and — on a CUDA card only — the
+hand-written kernels (fill-aggregation, int8 quantize and dequantize,
+flash attention on both its kernels, the SSD chunk scan's stage kernels
+(without decay also against a float64 recurrence), expert GEMM on its
+three kernels) against their plain versions, bit for bit on a repeat
+where they take no atomics, with their launch counts.
 
 Tolerances: float32 sums of at most 8 terms taken in another order, so
 1e-6 (rtol and atol) for the flat function; the tree routes add the
@@ -37,6 +42,8 @@ from repro_torch.kernels import build, ops, ref  # noqa: E402
 from repro_torch.kernels import expert_gemm as egemm  # noqa: E402
 from repro_torch.kernels import flash_attention as flash  # noqa: E402
 from repro_torch.kernels import quantize as kq  # noqa: E402
+from repro_torch.kernels import ssd_scan as kssd  # noqa: E402
+from repro_torch.models.ssm import ssd_chunked_torch  # noqa: E402
 
 TOL = 1e-6
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}    # atol: 5x
@@ -98,10 +105,11 @@ def flash_np(b, s, h, kh, d, seed):
             rng.normal(size=(b, s, kh, d)).astype(np.float32))
 
 
-def ssd_np(b, nc, q, h, p, n, seed):
+def ssd_np(b, nc, q, h, p, n, seed, decay=0.1):
+    """xs, a, bm, cm of K4's layout; a = -|normal| x ``decay``."""
     rng = np.random.default_rng(seed)
     return (rng.normal(size=(b, nc, q, h, p)).astype(np.float32),
-            (-np.abs(rng.normal(size=(b, nc, q, h))) * 0.1).astype(
+            (-np.abs(rng.normal(size=(b, nc, q, h))) * decay).astype(
                 np.float32),
             rng.normal(size=(b, nc, q, n)).astype(np.float32),
             rng.normal(size=(b, nc, q, n)).astype(np.float32))
@@ -144,6 +152,131 @@ def test_plain_ssd_scan_matches_reference(jax_ref, b, nc, q, h, p, n):
                                    rtol=SSD_TOL, atol=SSD_TOL)
         np.testing.assert_allclose(st.numpy(), np.asarray(s_r),
                                    rtol=SSD_TOL, atol=SSD_TOL)
+
+
+# edge cases of the chunked scan, (shape, decay, padded rows): one chunk,
+# no decay, strong decay (a about -50 a step: exp(-acum) would overflow
+# float32 within two steps if L were factored), and a padded tail (the
+# model pads a prompt to whole chunks with dt = 0, so x, a, B and C are 0)
+SSD_EDGES = {"one_chunk": ((1, 1, 32, 1, 16, 8), 0.1, 0),
+             "no_decay": ((1, 8, 32, 1, 16, 8), 0.0, 0),
+             "strong_decay": ((1, 8, 32, 1, 16, 8), 60.0, 0),
+             "padded_tail": ((1, 8, 32, 1, 16, 8), 0.1, 20)}
+
+
+def ssd_edge_np(case):
+    shape, decay, pad = SSD_EDGES[case]
+    xs, a, bm, cm = ssd_np(*shape, seed=11, decay=decay)
+    if pad:
+        for arr in (xs, a, bm, cm):
+            arr[:, -1, -pad:] = 0.0
+    return xs, a, bm, cm
+
+
+@pytest.mark.parametrize("case", sorted(SSD_EDGES))
+def test_ssd_chunked_torch_matches_reference(jax_ref, case):
+    """The stages K4's kernels implement, as the torch route computes
+    them (``models/ssm.ssd_chunked_torch``, on K4's layout), == the
+    sequential recurrence (``ref.ssd_scan``) and the JAX package's
+    oracle and Pallas kernel (interpret mode; at the sweep's shape
+    (1, 8, 32, 1, 16, 8), which the Pallas kernel has compiled; the one
+    chunk, a shape of its own, against the oracle alone)."""
+    _, jops, jref = jax_ref
+    import jax.numpy as jnp
+    arrs = ssd_edge_np(case)
+    b, nc, q, h, p = arrs[0].shape
+    y, st = ssd_chunked_torch(*map(torch.from_numpy, arrs))
+    assert y.shape == (b, nc, q, h, p) and st.shape == (b, h, p, 8)
+    assert torch.isfinite(y).all() and torch.isfinite(st).all()
+    y_p, s_p = ops.ssd_scan(*map(torch.from_numpy, arrs))
+    np.testing.assert_allclose(y.numpy(), y_p.numpy(), rtol=SSD_TOL,
+                               atol=SSD_TOL)
+    np.testing.assert_allclose(st.numpy(), s_p.numpy(), rtol=SSD_TOL,
+                               atol=SSD_TOL)
+    assert ops.LAUNCHES["ssd_scan"] == 0
+    assert not any(kssd.STAGE_LAUNCHES.values())
+    jargs = [jnp.asarray(arr) for arr in arrs]
+    fns = (jref.ssd_scan,) if nc == 1 else (jref.ssd_scan, jops.ssd_scan)
+    for fn in fns:
+        y_r, s_r = fn(*jargs)
+        np.testing.assert_allclose(y.numpy(), np.asarray(y_r),
+                                   rtol=SSD_TOL, atol=SSD_TOL)
+        np.testing.assert_allclose(st.numpy(), np.asarray(s_r),
+                                   rtol=SSD_TOL, atol=SSD_TOL)
+
+
+def test_ssd_chunked_torch_padded_rows_keep_the_state():
+    """Rows with x = a = B = C = 0 leave the state as it was: the final
+    state of the padded chunks == the recurrence over the real rows."""
+    xs, a, bm, cm = map(torch.from_numpy, ssd_edge_np("padded_tail"))
+    b, nc, q, h, p = xs.shape
+    real = nc * q - SSD_EDGES["padded_tail"][2]
+
+    def unpadded(t):
+        return t.reshape(b, 1, nc * q, *t.shape[3:])[:, :, :real] \
+            .contiguous()
+
+    y_r, s_r = ref.ssd_scan(*map(unpadded, (xs, a, bm, cm)))
+    y, st = ssd_chunked_torch(xs, a, bm, cm)
+    np.testing.assert_allclose(st.numpy(), s_r.numpy(), rtol=SSD_TOL,
+                               atol=SSD_TOL)
+    np.testing.assert_allclose(unpadded(y).numpy(), y_r.numpy(),
+                               rtol=SSD_TOL, atol=SSD_TOL)
+    assert not y.reshape(b, nc * q, h, p)[:, real:].any()
+
+
+def test_ssd_chunked_torch_carries_an_initial_state():
+    """From a given initial state S0, the chunked scan == the zero-state
+    scan plus S0's decayed share: y += exp(cumsum a) ∘ (C S0ᵀ) and the
+    final state += S0 exp(sum a)."""
+    xs, a, bm, cm = map(torch.from_numpy, ssd_np(1, 3, 32, 2, 16, 8,
+                                                 seed=5))
+    s0 = torch.from_numpy(np.random.default_rng(6).normal(
+        size=(1, 2, 16, 8)).astype(np.float32))
+    y0, st0 = ssd_chunked_torch(xs, a, bm, cm)
+    y, st = ssd_chunked_torch(xs, a, bm, cm, initial_state=s0)
+    acum = torch.cumsum(a.reshape(1, 96, 2), dim=1)          # (b, t, h)
+    share = torch.einsum("btn,bhpn->bthp", cm.reshape(1, 96, 8), s0) \
+        * torch.exp(acum)[..., None]
+    np.testing.assert_allclose(y.reshape(1, 96, 2, 16).numpy(),
+                               (y0.reshape(1, 96, 2, 16) + share).numpy(),
+                               rtol=SSD_TOL, atol=SSD_TOL)
+    np.testing.assert_allclose(
+        st.numpy(),
+        (st0 + s0 * torch.exp(acum[:, -1])[..., None, None]).numpy(),
+        rtol=SSD_TOL, atol=SSD_TOL)
+
+
+def test_ssd_stage_table_covers_every_stage_kernel():
+    """The three stage kernels, in launch order (the C library's stage
+    numbers), each counted; on the CPU a call runs the plain version and
+    counts neither the call nor a stage."""
+    assert kssd.STAGES == ("chunk_state", "state_pass", "chunk_out")
+    assert list(kssd.STAGE_LAUNCHES) == list(kssd.STAGES)
+    xs, a, bm, cm = map(torch.from_numpy, ssd_np(1, 2, 64, 2, 32, 16, 0))
+    y, st = ops.ssd_scan(xs, a, bm, cm)
+    y_p, s_p = ref.ssd_scan(xs, a, bm, cm)
+    assert torch.equal(y, y_p) and torch.equal(st, s_p)
+    assert ops.LAUNCHES["ssd_scan"] == 0
+    assert not any(kssd.STAGE_LAUNCHES.values())
+
+
+def test_ssd_rounding_emulation_sums_the_scan(capsys):
+    """``launch/ssd_rounding``'s emulation of K4's summation order
+    computes the scan: at a = 0 it equals a float64 recurrence within
+    SSD_TOL, as does each variant, and the script runs."""
+    from repro_torch.launch import ssd_rounding
+    g = torch.Generator().manual_seed(3)
+    xs, bm, cm = (torch.randn(shape, generator=g)
+                  for shape in ((2, 16, 2, 8), (2, 16, 8), (2, 16, 8)))
+    y64 = ssd_rounding.recurrence(xs, bm, cm, torch.float64)
+    for kw in ({}, {"exact_state": True}, {"exact_cb": True},
+               {"two_acc": True}):
+        y = ssd_rounding.kernel_order(xs, bm, cm, **kw)
+        np.testing.assert_allclose(y.double().numpy(), y64.numpy(),
+                                   rtol=SSD_TOL, atol=SSD_TOL)
+    assert ssd_rounding.main(["--shape", "2", "16", "1", "8", "8"]) == 0
+    assert "of the limit" in capsys.readouterr().out
 
 
 def gemm_np(e, c, d, f, seed):
@@ -799,13 +932,26 @@ def test_cuda_flash_attention_tensor_core_repeats_bit_for_bit(cuda, b, s, h,
     assert torch.equal(first.view(torch.int16), second.view(torch.int16))
 
 
+# K4 on the card: (shape, decay); the sweep's shapes at decay 0.1, then
+# the edge cases of its stages
+CUDA_SSD_CASES = [(shape, 0.1) for shape in SSD_SHAPES] + [
+    ((1, 2, 128, 2, 80, 64), 0.1),      # two P tiles (zamba2's head dim)
+    ((4, 8, 128, 48, 64, 128), 0.1),    # mamba2-780m's prefill
+    ((2, 1, 128, 48, 64, 128), 0.1),    # one chunk: no state enters
+    ((1, 32, 128, 48, 64, 128), 0.1),   # 4096 tokens at B = 1
+    ((1, 2, 128, 4, 64, 64), 0.0),      # no decay (a = 0)
+    ((2, 8, 128, 4, 80, 128), 60.0)]    # a about -50 a step
+
+
+def cuda_ssd_args(shape, decay, device):
+    return [torch.from_numpy(arr).to(device)
+            for arr in ssd_np(*shape, seed=shape[2], decay=decay)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,nc,q,h,p,n", SSD_SHAPES + [
-    (1, 2, 128, 2, 80, 64),      # two P tiles (zamba2's head dim)
-    (4, 8, 128, 48, 64, 128)])   # mamba2-780m's prefill
-def test_cuda_ssd_scan_matches_plain_version(cuda, b, nc, q, h, p, n):
-    args = [torch.from_numpy(a).to(cuda) for a in ssd_np(b, nc, q, h, p, n,
-                                                          seed=q)]
+@pytest.mark.parametrize("shape,decay", CUDA_SSD_CASES)
+def test_cuda_ssd_scan_matches_plain_version(cuda, shape, decay):
+    args = cuda_ssd_args(shape, decay, cuda)
     before = ops.LAUNCHES["ssd_scan"]
     y, st = ops.ssd_scan(*args)
     torch.cuda.synchronize()
@@ -813,6 +959,54 @@ def test_cuda_ssd_scan_matches_plain_version(cuda, b, nc, q, h, p, n):
     y_r, s_r = ref.ssd_scan(*args)
     torch.testing.assert_close(y, y_r, rtol=SSD_TOL, atol=SSD_TOL)
     torch.testing.assert_close(st, s_r, rtol=SSD_TOL, atol=SSD_TOL)
+
+
+@pytest.mark.cuda
+def test_cuda_ssd_scan_no_decay_matches_float64(cuda):
+    """Without decay at 4 chunks and N 128, |y| reaches the thousands and
+    the kernel and the plain float32 recurrence, summing in other orders,
+    differ by more than SSD_TOL: there the kernel is held to a float64
+    recurrence within SSD_TOL."""
+    args = cuda_ssd_args((1, 4, 128, 4, 64, 128), 0.0, cuda)
+    xs, a, bm, cm = (t.double() for t in args)
+    b, nc, q, h, p = xs.shape
+    s64 = torch.zeros((b, h, p, bm.shape[-1]), dtype=torch.float64,
+                      device=cuda)
+    ys = []
+    for t in range(nc * q):
+        c, i = divmod(t, q)
+        s64 = (s64 * torch.exp(a[:, c, i])[:, :, None, None]
+               + torch.einsum("bhp,bn->bhpn", xs[:, c, i], bm[:, c, i]))
+        ys.append(torch.einsum("bn,bhpn->bhp", cm[:, c, i], s64))
+    y64 = torch.stack(ys, dim=1).reshape(b, nc, q, h, p)
+    y, st = ops.ssd_scan(*args)
+    torch.testing.assert_close(y.double(), y64, rtol=SSD_TOL, atol=SSD_TOL)
+    torch.testing.assert_close(st.double(), s64, rtol=SSD_TOL, atol=SSD_TOL)
+
+
+@pytest.mark.cuda
+def test_cuda_ssd_scan_repeats_bit_for_bit(cuda):
+    """No float atomics: the same call twice gives the same bits."""
+    args = cuda_ssd_args((4, 8, 128, 48, 64, 128), 0.1, cuda)
+    y1, s1 = ops.ssd_scan(*args)
+    y2, s2 = ops.ssd_scan(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(y1.view(torch.int32), y2.view(torch.int32))
+    assert torch.equal(s1.view(torch.int32), s2.view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_cuda_ssd_scan_counts_a_call_and_its_stage_launches(cuda):
+    """One call: ops.LAUNCHES["ssd_scan"] + 1, and one launch of each
+    stage kernel."""
+    args = cuda_ssd_args((1, 2, 64, 2, 32, 16), 0.1, cuda)
+    calls = ops.LAUNCHES["ssd_scan"]
+    stages = dict(kssd.STAGE_LAUNCHES)
+    ops.ssd_scan(*args)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["ssd_scan"] == calls + 1
+    assert {k: kssd.STAGE_LAUNCHES[k] - stages[k] for k in stages} == \
+        dict.fromkeys(kssd.STAGES, 1)
 
 
 @pytest.mark.cuda
