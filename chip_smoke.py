@@ -16,7 +16,10 @@ Phases, each fatal on failure:
    memory (no spill);
 3. check: each kernel against its plain PyTorch version on the card, at
    the main path's shapes and at ragged ones: fill-aggregation within
-   rtol = atol = 1e-6; int8 quantize/dequantize bit for bit, per vector
+   rtol = atol = 1e-6, and its in-place variant (``donate_prev``) bit for
+   bit the out-of-place result, in prev's storage, with
+   ``memory_allocated`` unchanged across the call (out of place it grows
+   by 4 P bytes); int8 quantize/dequantize bit for bit, per vector
    (exact ties, zeros, clipping, views 0-3 elements past a 16-byte
    boundary, the largest leaf and the whole master as one vector) and
    per tree with the scale pass (the 126-leaf master, the same master as
@@ -24,7 +27,8 @@ Phases, each fatal on failure:
    tree over a table's capacity, ties with zeros, all-zero and 1-element
    leaves, and ties and clipping at given scales), 3 launches a chunk;
 4. timing: each kernel at the main path's shape (int8: its largest leaf,
-   and the whole master as one vector), beside its bound, its plain
+   and the whole master as one vector; K1 out of place and in place),
+   beside its bound, its plain
    version and the nearest single PyTorch call, all as device time
    (calls queued behind a spin kernel), and the kernel's time per call
    with the host's dispatch; the int8 kernels and the scale pass over
@@ -101,7 +105,23 @@ Phases, each fatal on failure:
    prefill time, decode tokens/s and peak memory; and, at smoke size in
    float32, prefill logits against the decode replay within 1e-3 (for
    the MoE at a capacity that cannot drop a choice: a prefill that
-   drops differs from the replay, in the JAX package too).
+   drops differs from the replay, in the JAX package too);
+11. the batched backend: the phase-5 run on ``backend="vmap"``, each
+   with its launch counts zeroed before and read after, held against
+   phase 5's ``loop`` run (equal keys and CommStats, masters within
+   1e-4): fused on the kernel route (3 K1 launches, all in place; 8
+   dispatches), fused on the torch route (no launch; 5 dispatches), and
+   fused with ``uplink_codec="int8:kernel"`` (master donation off; 3
+   launches each of the scale pass, K2a and K2b) against a ``loop`` run
+   with the same uplink (masters within 1e-4 plus one int8 step of the
+   leaf's update).  At this width a float32 client update lies about
+   1e-3 from a float64 one, so a master is held to the loop's only
+   where the run adds the same uploads in the loop's order; non-fused
+   on the kernel route (12 K1 launches, 3 in place; 40 dispatches)
+   adds K1's per-group partials, so its keys and CommStats are held to
+   the loop run's, its master gap logged, and one ``train_fill`` held to
+   the loop's within 1e-6; generation 2's ``round_s`` and the peak
+   device memory of each run beside phase 5's.
 
 Prints the kernels as one JSON line, then the ``nvidia-smi`` line, then
 ``{"ok": true, "device": {...}}`` as the last line.  Exits non-zero
@@ -128,10 +148,11 @@ from repro_torch.core import cnn_supernet_api  # noqa: E402
 from repro_torch.data import make_classification, make_clients, \
     partition_iid  # noqa: E402
 from repro_torch.comm import make_codec  # noqa: E402
-from repro_torch.engine import FedAvgBaseline, FedEngine, OfflineNas, \
-    RunConfig  # noqa: E402
+from repro_torch.engine import FedAvgBaseline, FedEngine, LoopBackend, \
+    OfflineNas, RunConfig, VmapBackend  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
 from repro_torch.kernels import expert_gemm as egemm  # noqa: E402
+from repro_torch.kernels import fill_aggregate as kfa  # noqa: E402
 from repro_torch.kernels import flash_attention as flash  # noqa: E402
 from repro_torch.kernels import quantize as kq  # noqa: E402
 from repro_torch.kernels import ssd_scan as kssd  # noqa: E402
@@ -182,26 +203,56 @@ def fill_inputs(m, p, seed, zero_weight_row=False, zero_masks=False):
     return cl, mk, w, prev
 
 
-def check_fill_aggregate() -> float:
+def check_fill_aggregate() -> tuple:
+    """K1 out of place against its plain version, then in place
+    (``donate_prev``): bit for bit the out-of-place result, in prev's
+    storage, with ``memory_allocated`` unchanged across the call where
+    the out-of-place call grows it by 4 P bytes (the allocator's 512-byte
+    rounding aside).  Returns the largest |kernel - plain| of each."""
     cases = [dict(m=1, p=1000), dict(m=2, p=8193), dict(m=5, p=100_000),
              dict(m=MAIN_M, p=MAIN_P),
              dict(m=5, p=100_003, zero_weight_row=True),
              dict(m=MAIN_M, p=MAIN_P, zero_masks=True)]
-    worst = 0.0
+    worst = worst_inplace = 0.0
     for i, case in enumerate(cases):
         cl, mk, w, prev = fill_inputs(seed=i, **case)
+        p = prev.numel()
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
         out = ops.fill_aggregate(cl, mk, w, prev)
         torch.cuda.synchronize()
+        grew = torch.cuda.memory_allocated() - before
         plain = ref.fill_aggregate(cl, mk, w, prev)
         torch.testing.assert_close(out, plain, rtol=TOL, atol=TOL)
         if case.get("zero_masks"):
             torch.testing.assert_close(out, prev, rtol=TOL, atol=TOL)
         err = float((out - plain).abs().max())
         worst = max(worst, err)
-        log(f"check fill_aggregate {case}: max |kernel - plain| = {err!r}")
-        del cl, mk, w, prev, out, plain
+        ptr = prev.data_ptr()
+        before = torch.cuda.memory_allocated()
+        got = ops.fill_aggregate(cl, mk, w, prev, donate_prev=True)
+        torch.cuda.synchronize()
+        grew_inplace = torch.cuda.memory_allocated() - before
+        err_inplace = float((got - plain).abs().max())
+        worst_inplace = max(worst_inplace, err_inplace)
+        log(f"check fill_aggregate {case}: max |kernel - plain| = {err!r}; "
+            f"in place {err_inplace!r}, bit for bit the out-of-place "
+            f"result: {torch.equal(got.view(torch.int32), out.view(torch.int32))}"
+            f", memory_allocated grew {grew_inplace} B (out of place "
+            f"{grew} B, 4 P = {4 * p})")
+        if not (got is prev and got.data_ptr() == ptr):
+            raise AssertionError(f"fill_aggregate in place {case}: the "
+                                 "result is not prev's storage")
+        if not torch.equal(got.view(torch.int32), out.view(torch.int32)):
+            raise AssertionError(f"fill_aggregate in place {case}: differs "
+                                 "from the out-of-place result")
+        if grew_inplace != 0 or not 4 * p <= grew < 4 * p + 512:
+            raise AssertionError(
+                f"fill_aggregate {case}: memory_allocated grew "
+                f"{grew_inplace} B in place, {grew} B out of place")
+        del cl, mk, w, prev, out, plain, got
     torch.cuda.empty_cache()
-    return worst
+    return worst, worst_inplace
 
 
 def int8_inputs(p, seed, ties, offset=0):
@@ -414,7 +465,12 @@ def bound(nbytes: float, flops: float, peak: float) -> dict:
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
 
 
-def time_fill_aggregate(card: str) -> dict:
+def time_fill_aggregate(card: str) -> tuple:
+    """K1 out of place and in place at the main path's shape, each beside
+    the same bound (the same bytes: in place, prev is read once and
+    written once), its plain version and the nearest PyTorch expression
+    (lerp + matvec; in place with ``out=prev``).  Out of place is timed
+    before and after in place, and both are logged."""
     m, p = MAIN_M, MAIN_P
     cl, mk, w, prev = fill_inputs(m, p, seed=99)
     nbytes = (2 * m + 1) * p * 4 + m * 4 + p * 4
@@ -429,13 +485,31 @@ def time_fill_aggregate(card: str) -> dict:
         **bound(nbytes, flops, FP32_FLOPS),
     }
     call_ms = median_ms(lambda: ops.fill_aggregate(cl, mk, w, prev), 30)
+    # in place: each call writes prev, a convex combination of the last,
+    # so the values stay bounded over the repeats
+    inplace = {
+        "ms": device_ms(lambda: ops.fill_aggregate(cl, mk, w, prev,
+                                                   donate_prev=True), 10),
+        "plain_ms": device_ms(lambda: ref.fill_aggregate_(cl, mk, w, prev),
+                              5),
+        "library_ms": device_ms(lambda: torch.matmul(
+            w, torch.lerp(prev.expand_as(cl), cl, mk), out=prev), 5),
+        **bound(nbytes, flops, FP32_FLOPS),
+    }
+    inplace_call_ms = median_ms(
+        lambda: ops.fill_aggregate(cl, mk, w, prev, donate_prev=True), 30)
+    again_ms = device_ms(lambda: ops.fill_aggregate(cl, mk, w, prev), 10)
     log(f"timing fill_aggregate (m={m}, P={p}) on {card}: kernel "
-        f"{res['ms']!r} ms (one call with its dispatch {call_ms!r} ms), bound {res['bound_ms']!r} ms ({res['bound_by']}"
-        f", {nbytes} B), plain {res['plain_ms']!r} ms, library "
-        f"{res['library_ms']!r} ms")
+        f"{res['ms']!r} ms, again after the in-place runs {again_ms!r} ms "
+        f"(one call with its dispatch {call_ms!r} ms), bound "
+        f"{res['bound_ms']!r} ms ({res['bound_by']}, {nbytes} B), plain "
+        f"{res['plain_ms']!r} ms, library {res['library_ms']!r} ms; in "
+        f"place: kernel {inplace['ms']!r} ms (with its dispatch "
+        f"{inplace_call_ms!r} ms), plain {inplace['plain_ms']!r} ms, "
+        f"library (out=prev) {inplace['library_ms']!r} ms")
     del cl, mk, w, prev
     torch.cuda.empty_cache()
-    return res
+    return res, inplace
 
 
 def time_int8(card: str, p: int) -> dict:
@@ -546,8 +620,9 @@ def time_tree(card: str, api) -> dict:
 
 
 def zero_launches() -> None:
-    for counts in (ops.LAUNCHES, flash.VARIANT_LAUNCHES,
-                   egemm.VARIANT_LAUNCHES, kssd.STAGE_LAUNCHES):
+    for counts in (ops.LAUNCHES, kfa.VARIANT_LAUNCHES,
+                   flash.VARIANT_LAUNCHES, egemm.VARIANT_LAUNCHES,
+                   kssd.STAGE_LAUNCHES):
         for k in counts:
             counts[k] = 0
 
@@ -561,6 +636,17 @@ def expect_launches(label: str, expected: dict) -> dict:
     if got != expected:
         raise AssertionError(f"{label}: launches {got}, expected {expected}")
     return got
+
+
+def expect_fill_variants(label: str, in_place: int, out_of_place: int
+                         ) -> None:
+    """K1's launches by variant (``kernels/fill_aggregate.py``)."""
+    expected = {"out_of_place": out_of_place, "in_place": in_place}
+    got = dict(kfa.VARIANT_LAUNCHES)
+    log(f"{label} fill_aggregate launches by variant: {got}")
+    if got != expected:
+        raise AssertionError(f"{label}: fill_aggregate variants {got}, "
+                             f"expected {expected}")
 
 
 def expect_variants(label: str, cfg, per_prefill: dict) -> None:
@@ -611,7 +697,9 @@ def check_run(result, label: str) -> None:
                                  f"{bad[:5]}")
 
 
-def same_trajectory(a, b, label: str, tol: float) -> float:
+def same_trajectory(a, b, label: str, tol: float | None) -> float:
+    """Equal CommStats and parent keys, else raise; the final masters'
+    largest gap is logged, and held within ``tol`` unless it is None."""
     if dataclasses.asdict(a.stats) != dataclasses.asdict(b.stats):
         raise AssertionError(f"{label}: CommStats differ: {a.stats} vs "
                              f"{b.stats}")
@@ -624,9 +712,147 @@ def same_trajectory(a, b, label: str, tol: float) -> float:
     diff = master_diff(a.extras["final_master"], b.extras["final_master"])
     log(f"{label}: equal keys and CommStats; final master max abs diff "
         f"{diff!r}")
-    if not diff <= tol:
+    if tol is not None and not diff <= tol:
         raise AssertionError(f"{label}: master diff {diff} > {tol}")
     return diff
+
+
+# ---------------------------------------------------------------------------
+# phase 11: the batched vmap backend
+# ---------------------------------------------------------------------------
+
+def timed_run(api, clients, label, cfg_kw):
+    """One full-width RealTimeNas run with the launch counts zeroed just
+    before and read by the caller just after; returns (result, engine,
+    peak device memory)."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    eng = FedEngine(api, clients, RunConfig(**cfg_kw))
+    zero_launches()
+    result = eng.run()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    check_run(result, label)
+    for r in result.reports:
+        log(f"{label} generation {r.gen}: round_s {r.round_s!r}, best_err "
+            f"{r.best_err!r}")
+    return result, eng, peak
+
+
+def int8_master_gap(a, b, init) -> float:
+    """Largest |a - b| over the leaves beyond 1e-4 plus one step of the
+    int8 grid of the leaf's update (``max|a - init| / 127``); <= 0 when
+    every leaf is inside."""
+    return max(float((a[k].cpu() - b[k].cpu()).abs().max())
+               - (MASTER_TOL + float((a[k].cpu() - init[k]).abs().max())
+                  / 127) for k in a)
+
+
+def check_one_fill(api, clients, label: str, cfg_kw: dict) -> None:
+    """One ``train_fill`` at full width from the strategies' init, four
+    groups of two clients: the vmap backend configured by ``cfg_kw``
+    against the loop backend's kernel route within TOL.  The clients
+    train in turn on the loop's step, so the uploads are the loop's bit
+    for bit and only Algorithm 3's sums are grouped otherwise."""
+    master = {k: v.cuda() for k, v in
+              api.init(torch.Generator().manual_seed(0)).items()}
+    rng = np.random.default_rng(1)
+    keys = [rng.integers(0, 4, api.num_blocks) for _ in range(4)]
+    groups = [np.arange(2 * g, 2 * g + 2) for g in range(4)]
+    loop = LoopBackend(api, clients, RunConfig(**dict(
+        RUN, aggregate_backend="kernel"))).train_fill(master, keys, groups,
+                                                      0.01)
+    ours = VmapBackend(api, clients, RunConfig(**cfg_kw)).train_fill(
+        master, keys, groups, 0.01)
+    torch.cuda.synchronize()
+    diff = master_diff(loop, ours)
+    log(f"{label}, one train_fill against the loop backend's: master max "
+        f"abs diff {diff!r}")
+    if not diff <= TOL:
+        raise AssertionError(f"{label}: one train_fill differs from the "
+                             f"loop backend's by {diff} > {TOL}")
+    del master, loop, ours
+    torch.cuda.empty_cache()
+
+
+def check_vmap(api, clients, loop_run, loop_peak: int, card: str) -> int:
+    """``backend="vmap"`` at full width against phase 5's ``loop`` run.
+    Returns K1's in-place launches in the fused kernel-route run."""
+    gens, pop = RUN["generations"], RUN["population"]
+    n_fill = gens + 1
+    fused_bound = 2 * gens + 1
+    vm = dict(RUN, backend="vmap")
+    # (label, config, K1 launches in place / out of place, dispatches,
+    #  master held within MASTER_TOL of the loop run's).  Every run's
+    # keys and CommStats equal the loop's.  At this width a float32
+    # client update lies about 1e-3 from a float64 one, so a one-ulp
+    # difference in a generation-1 master grows to about 1e-3 by the end
+    # of generation 2: a run's master is held to the loop's only where it
+    # adds the same uploads in the loop's order.  The non-fused kernel
+    # route adds K1's per-group partials; it is held on one train_fill
+    # (check_one_fill) and its run's master gap logged.
+    nonfused = dict(vm, aggregate_backend="kernel", fused=False)
+    cases = [
+        ("vmap fused, kernel route", dict(vm, aggregate_backend="kernel"),
+         n_fill, 0, fused_bound + n_fill, True),
+        ("vmap fused, torch route", dict(vm, aggregate_backend="torch"),
+         0, 0, fused_bound, True),
+        ("vmap non-fused, kernel route", nonfused, n_fill,
+         n_fill * (pop - 1), 2 * pop * (n_fill + gens), False),
+    ]
+    rows = [("loop (phase 5)", loop_run.reports[-1].round_s, loop_peak)]
+    in_place_launches = None
+    for (label, cfg_kw, in_place, out_of_place, dispatches,
+         strict) in cases:
+        result, eng, peak = timed_run(api, clients, label, cfg_kw)
+        expect_launches(label, {"fill_aggregate": in_place + out_of_place})
+        expect_fill_variants(label, in_place, out_of_place)
+        if in_place_launches is None:
+            in_place_launches = kfa.VARIANT_LAUNCHES["in_place"]
+        log(f"{label}: dispatches {eng.backend.dispatches}, peak device "
+            f"memory {peak} B")
+        if eng.backend.dispatches != dispatches:
+            raise AssertionError(f"{label}: {eng.backend.dispatches} "
+                                 f"dispatches, expected {dispatches}")
+        same_trajectory(loop_run, result, f"{label} vs loop",
+                        MASTER_TOL if strict else None)
+        log(f"{label}: generation 2 best_err {result.reports[-1].best_err!r}"
+            f" (loop {loop_run.reports[-1].best_err!r})")
+        rows.append((label, result.reports[-1].round_s, peak))
+        del result, eng
+    check_one_fill(api, clients, "vmap non-fused, kernel route", nonfused)
+
+    # fused, kernel route, int8 uplink: no master donation, one launch of
+    # the scale pass, K2a and K2b per roundtrip (one uplink per train_fill)
+    up = dict(RUN, uplink_codec="int8:kernel")
+    loop8, _, _ = timed_run(api, clients, "loop, int8 uplink", up)
+    label = "vmap fused, kernel route, int8 uplink"
+    vmap8, eng, peak = timed_run(api, clients, label,
+                                 dict(up, backend="vmap"))
+    n_int8 = n_fill * N_CHUNKS
+    expect_launches(label, {"fill_aggregate": n_fill, "int8_scale": n_int8,
+                            "quantize_int8": n_int8,
+                            "dequantize_int8": n_int8})
+    expect_fill_variants(label, n_fill, 0)
+    if eng.backend.inner.donate_master is not False:
+        raise AssertionError(f"{label}: master donation is on")
+    if eng.backend.dispatches != fused_bound + n_fill:
+        raise AssertionError(f"{label}: {eng.backend.dispatches} dispatches")
+    # the strategies' init (seed 0), from which the updates are measured
+    init = api.init(torch.Generator().manual_seed(0))
+    same_trajectory(loop8, vmap8, f"{label} vs loop", math.inf)
+    gap = int8_master_gap(loop8.extras["final_master"],
+                          vmap8.extras["final_master"], init)
+    log(f"{label} vs loop: largest master gap beyond 1e-4 + one int8 step "
+        f"of the leaf's update: {gap!r}")
+    if gap > 0:
+        raise AssertionError(f"{label}: master outside 1e-4 + one int8 step")
+    rows.append((label, vmap8.reports[-1].round_s, peak))
+    del loop8, vmap8, eng
+    for label, round_s, peak in rows:
+        log(f"generation 2 round_s on {card}: {label}: {round_s!r} s, peak "
+            f"device memory {peak} B")
+    return in_place_launches
 
 
 # ---------------------------------------------------------------------------
@@ -1329,12 +1555,12 @@ def main() -> int:
     api = cnn_supernet_api(cfg)
     if api.master_params() != MAIN_P:
         raise AssertionError(f"master has {api.master_params()} params")
-    max_err = check_fill_aggregate()
+    max_err, inplace_err = check_fill_aggregate()
     err_q, err_d = check_int8()
     err_tree = check_int8_tree(api)
 
     # 4. timing
-    timing = time_fill_aggregate(card)
+    timing, inplace_timing = time_fill_aggregate(card)
     int8_timing = time_int8(card, LEAF_P)
     time_int8(card, MAIN_P)
     tree_timing = time_tree(card, api)
@@ -1349,12 +1575,13 @@ def main() -> int:
     # 2 train_fill in generation 1, then 1 per generation
     n_fill = RUN["generations"] + 1
     launches = expect_launches("main path", {"fill_aggregate": n_fill})
+    expect_fill_variants("main path", 0, n_fill)
     check_run(kernel_run, "main path")
     for r in kernel_run.reports:
         log(f"main path generation {r.gen}: round_s {r.round_s!r}, best_err "
             f"{r.best_err!r}, parents {[k.tolist() for k in r.parent_keys]}")
-    log(f"main path peak device memory: "
-        f"{torch.cuda.max_memory_allocated()} B")
+    main_peak = torch.cuda.max_memory_allocated()
+    log(f"main path peak device memory: {main_peak} B")
 
     # 6. the plain route, and the card against the CPU at smoke size
     torch_run = FedEngine(api, clients, RunConfig(
@@ -1364,7 +1591,12 @@ def main() -> int:
         log(f"torch route generation {r.gen}: round_s {r.round_s!r}")
     same_trajectory(kernel_run, torch_run, "kernel vs torch route",
                     MASTER_TOL)
-    del kernel_run, torch_run
+    # phase 11 holds the vmap runs against this one: keep its master on
+    # the host
+    master = kernel_run.extras["final_master"]
+    kernel_run.extras["final_master"] = {k: v.cpu() for k, v in
+                                         master.items()}
+    del torch_run, master
     smoke = cnn_supernet_api(get_config("cifar-supernet", smoke=True))
     x, y = make_classification(0, 480, image=8, signal=1.5, noise=0.5)
     small = make_clients(x, y, partition_iid(0, 480, 8), batch=20,
@@ -1458,12 +1690,25 @@ def main() -> int:
         serve_launches = {arch: serve_arch(arch, card) for arch in SERVE}
         check_replay_smoke()
 
+    # 11. the batched vmap backend at full width against phase 5's run
+    in_place_launches = check_vmap(api, clients, kernel_run, main_peak,
+                                   card)
+    del kernel_run
+
     kernels = [{
         "name": "fill_aggregate", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/fill_aggregate.cu",
         "replaces": "src/repro/kernels/fill_aggregate.py:29",
         "launches": launches["fill_aggregate"], "max_abs_err": max_err,
         **timing,
+    }, {
+        # K1's donate_prev variant: the output written over prev, on the
+        # vmap backend's stacked route (phase 11's fused kernel-route run)
+        "name": "fill_aggregate_inplace", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/fill_aggregate.cu",
+        "replaces": "src/repro/kernels/fill_aggregate.py:61",
+        "launches": in_place_launches, "max_abs_err": inplace_err,
+        **inplace_timing,
     }, {
         "name": "quantize_int8", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/quantize_int8.cu",

@@ -16,10 +16,13 @@ Two routes compute the same function: ``"torch"`` leaf by leaf, summing
 the uploads in upload order (the JAX package's ``"xla"`` route), and
 ``"kernel"`` on one flat (P,) vector through
 ``repro_torch.kernels.ops.fill_aggregate`` (its ``"pallas"`` route).
+``fill_aggregate_stacked`` is the batched form for the ``vmap`` backend,
+over uploads stacked on a leading axis; ``fill_partial`` is its one
+reduction expression, which the fused fill shares.
 """
 from __future__ import annotations
 
-from typing import Dict, Sequence, Tuple
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -105,6 +108,129 @@ def fill_aggregate(prev_master: Params,
             filled = m * cp[k].float() + (1 - m) * p32
             acc = acc + weights[i] * filled
         out[k] = acc.to(prev.dtype)
+    return out
+
+
+def fill_aggregate_stacked(prev_master: Params,
+                           chunks: Sequence[Tuple[Params, np.ndarray,
+                                                  np.ndarray]],
+                           mask_fn: Callable,
+                           backend: str = "kernel",
+                           total: Optional[float] = None) -> Params:
+    """Batched Algorithm 3 for the ``vmap`` execution backend.
+
+    ``chunks`` holds stacked uploads: each entry is ``(stacked, keys,
+    weights)`` where every leaf of ``stacked`` carries a leading (m,)
+    upload axis (a leaf that a row did not train may be an ``expand``ed
+    view of the master), ``keys`` is the host (m, num_blocks) int array
+    and ``weights`` the host (m,) array.  The trained masks come from
+    ``mask_fn`` row by row (``stacked_masks``).  ``fill_aggregate`` is
+    its oracle.
+
+    ``backend="kernel"`` flattens each chunk to the (m, P) client and
+    mask matrices of the fill-aggregation kernel (its plain version on
+    the CPU), ``"torch"`` sums leaf by leaf (``fill_partial``).  Weight
+    normalization is global across chunks, so per-chunk partial sums
+    compose exactly; callers whose chunk weights are ALREADY normalized
+    pass ``total=1.0`` (the fused route): re-deriving it from the float
+    sum would shift every weight by about one ulp, and that grows over
+    generations of SGD."""
+    if total is None:
+        total = float(sum(float(np.sum(w)) for _, _, w in chunks))
+    if backend == "kernel":
+        return _fill_stacked_kernel(prev_master, chunks, mask_fn, total)
+    if backend != "torch":
+        raise ValueError(f"unknown aggregate backend {backend!r}; "
+                         "available: ['torch', 'kernel']")
+    dev = next(iter(prev_master.values())).device
+    acc = None
+    for stacked, keys, w in chunks:
+        wnorm = torch.as_tensor(np.asarray(w, np.float32) / total,
+                                device=dev)
+        acc = fill_partial(prev_master, stacked,
+                           stacked_masks(mask_fn, stacked, keys), wnorm, acc)
+    return {k: acc[k].to(p.dtype) for k, p in prev_master.items()}
+
+
+def _fill_stacked_kernel(prev_master: Params, chunks, mask_fn: Callable,
+                         total: float) -> Params:
+    """Kernel route of ``fill_aggregate_stacked`` (the JAX package's
+    ``_fill_stacked_pallas``): flatten every chunk to the (m, P) client
+    and mask matrices and sum the per-chunk partials (weights are
+    globally normalized, so the kernel's ``sum_k w_k * filled_k``
+    partials add up to Algorithm 3).  ``flat_prev`` is a fresh vector
+    that nothing reads after the last chunk, so that chunk's launch
+    writes in place into it (``donate_prev``)."""
+    from repro_torch.kernels import ops as kops
+
+    dev = next(iter(prev_master.values())).device
+    flat_prev = _flat_f32(list(prev_master.values()))
+    flat = None
+    for i, (stacked, keys, w) in enumerate(chunks):
+        wnorm = torch.as_tensor(np.asarray(w, np.float32) / total,
+                                device=dev)
+        cl, mk = _flatten_chunk(stacked, keys, mask_fn)
+        part = kops.fill_aggregate(cl, mk, wnorm, flat_prev,
+                                   donate_prev=(i == len(chunks) - 1))
+        del cl, mk
+        flat = part if flat is None else flat + part
+    return _unflatten_like(flat, prev_master)
+
+
+def stacked_masks(mask_fn: Callable, stacked: Params,
+                  keys: np.ndarray) -> Params:
+    """The JAX package's ``vmap(mask_fn)(stacked, keys)``: row i's mask
+    from ``keys[i]``, stacked per leaf to (m, ...) float32."""
+    rows = [mask_fn({k: v[i] for k, v in stacked.items()}, key)
+            for i, key in enumerate(np.asarray(keys))]
+    return {k: torch.stack([r[k].float() for r in rows]) for k in stacked}
+
+
+def _flatten_chunk(stacked: Params, keys: np.ndarray, mask_fn: Callable):
+    """(stacked leaves (m, ...), keys (m, nb)) -> (m, P) float32 client
+    and mask matrices over the flattened parameter vector."""
+    masks = stacked_masks(mask_fn, stacked, keys)
+    m = len(keys)
+    cl = torch.cat([x.reshape(m, -1).float() for x in stacked.values()],
+                   dim=1)
+    # a mask (m, 1, ...) expanded to the leaf's shape reshapes to an
+    # (m, n) view with stride 0, so only the cat writes the matrix
+    mk = torch.cat([mm.reshape(mm.shape + (1,) * (x.dim() - mm.dim()))
+                    .expand(x.shape).reshape(m, -1)
+                    for mm, x in zip(masks.values(), stacked.values())],
+                   dim=1)
+    return cl, mk
+
+
+def fill_partial(prev_master: Params, stacked: Params, masks: Params,
+                 wnorm: torch.Tensor, acc: Optional[Params] = None
+                 ) -> Params:
+    """The Algorithm 3 partial sum over one stack of uploads: per leaf,
+    ``acc + sum_k w_k * (mask_k * client_k + (1 - mask_k) * prev)`` in
+    float32, where every ``stacked``/``masks`` leaf carries a leading
+    (m,) upload axis, ``wnorm`` is the (m,) globally-normalized weight
+    vector (0-weight rows — padding, dropped clients — contribute
+    exactly nothing) and ``acc`` the running sum of earlier stacks
+    (zeros when None).
+
+    This is THE reduction expression of the batched fill paths: the
+    stacked aggregator's ``"torch"`` route and the fused fill both call
+    it.  It adds the uploads one at a time, in order, onto the running
+    sum, as ``fill_aggregate``'s torch route does, so the batched routes
+    and the loop backend give the same float32 master whenever they see
+    the same uploads and weights in the same order (on the full-width
+    supernet a one-ulp difference in a master grows to about 1e-3 after
+    one more generation of SGD)."""
+    out = {}
+    for k, prev in prev_master.items():
+        cp, m = stacked[k], masks[k].float()
+        m = m.reshape(m.shape + (1,) * (cp.dim() - m.dim()))
+        filled = m * cp.float() + (1 - m) * prev.float()[None]
+        run = torch.zeros_like(prev, dtype=torch.float32) \
+            if acc is None else acc[k]
+        for i in range(cp.shape[0]):
+            run = run + wnorm[i] * filled[i]
+        out[k] = run
     return out
 
 

@@ -3,8 +3,8 @@ from repro_torch.data.partition import (
     partition_dirichlet, partition_iid, partition_label,
 )
 from repro_torch.data.pipeline import (
-    ArraySource, ClientDataset, ClientFleet, batched, make_clients,
-    make_fleet,
+    ArraySource, ClientBatch, ClientDataset, ClientFleet, batched,
+    make_clients, make_fleet, shape_buckets,
 )
 from repro_torch.data.synthetic import (
     VirtualClassification, make_classification,
@@ -13,7 +13,7 @@ from repro_torch.data.synthetic import (
 __all__ = [
     "Partition", "IidPartition", "LabelPartition", "DirichletPartition",
     "partition_dirichlet", "partition_iid", "partition_label",
-    "ArraySource", "ClientDataset", "ClientFleet", "batched",
-    "make_clients", "make_fleet",
+    "ArraySource", "ClientBatch", "ClientDataset", "ClientFleet", "batched",
+    "make_clients", "make_fleet", "shape_buckets",
     "VirtualClassification", "make_classification",
 ]

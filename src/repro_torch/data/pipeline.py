@@ -1,9 +1,11 @@
 """Batching pipeline: shapes client shards into (num_batches, B, ...) numpy
-arrays for local training, plus the lazy ``ClientFleet`` (clients
+arrays for local training, plus ``ClientBatch`` stacking for the batched
+(``vmap``) execution backend and the lazy ``ClientFleet`` (clients
 materialized on demand from an index-space ``Partition``).  Shards stay
 on the host; the execution backend moves them to the run's device."""
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict, Iterator, List, Sequence, Tuple
 
 import numpy as np
@@ -41,6 +43,60 @@ class ClientDataset:
     @property
     def weight(self) -> float:
         return float(self.n_train)
+
+
+@dataclasses.dataclass
+class ClientBatch:
+    """A group of client shards stacked along a leading axis, so that one
+    batched call can run every (individual, client) local update or
+    (key, client) evaluation of the group.
+
+    ``xb``/``yb`` have shape (P, num_batches, B, ...) where P is the number
+    of stacked shards.  Stacking requires uniform shard shapes; callers
+    bucket ragged client sets with ``shape_buckets`` first.  The arrays
+    are numpy here; the backend may replace them with device tensors.
+    """
+    xb: np.ndarray
+    yb: np.ndarray
+    weights: np.ndarray      # (P,) float32 — n_k for training-weighted avg
+    client_ids: np.ndarray   # (P,) int
+
+    @property
+    def num_shards(self) -> int:
+        return self.xb.shape[0]
+
+    @property
+    def samples_per_shard(self) -> int:
+        return self.xb.shape[1] * self.xb.shape[2]
+
+    @classmethod
+    def stack(cls, clients: Sequence["ClientDataset"],
+              split: str = "train") -> "ClientBatch":
+        if not clients:
+            raise ValueError("cannot stack an empty client group")
+        if split not in ("train", "test"):
+            raise ValueError(f"split must be 'train' or 'test', got {split!r}")
+        shards = [(c.train if split == "train" else c.test) for c in clients]
+        shapes = {s[0].shape for s in shards}
+        if len(shapes) > 1:
+            raise ValueError(
+                f"ragged {split} shards {sorted(shapes)}; bucket clients by "
+                "shape (shape_buckets) before stacking")
+        return cls(
+            xb=np.stack([np.asarray(s[0]) for s in shards]),
+            yb=np.stack([np.asarray(s[1]) for s in shards]),
+            weights=np.asarray([c.weight for c in clients], np.float32),
+            client_ids=np.asarray([c.cid for c in clients], np.int64))
+
+
+def shape_buckets(shapes: Sequence[tuple]) -> List[List[int]]:
+    """Group indices by identical shape, preserving first-seen order (and
+    the original order within a bucket) so batched execution stays
+    deterministic."""
+    order: Dict[tuple, List[int]] = {}
+    for i, s in enumerate(shapes):
+        order.setdefault(tuple(s), []).append(i)
+    return list(order.values())
 
 
 def make_clients(x: np.ndarray, y: np.ndarray, shards: List[np.ndarray],

@@ -3,8 +3,12 @@
     FedEngine(api, clients, RunConfig(device="cuda"), strategy=RealTimeNas())
 
 Strategies: RealTimeNas (Algorithm 4), OfflineNas (Zhu & Jin 2019
-baseline), FedAvgBaseline (Algorithm 1, fixed architecture).  Backend:
-"loop" (reference, one local update per (individual, client) pair).
+baseline), FedAvgBaseline (Algorithm 1, fixed architecture).  Backends:
+"loop" (reference, one local update per (individual, client) pair) and
+"vmap" (stacked client shards on the device, a group's clients trained
+one after another on the loop's step, evaluation of tiles of clients
+under ``torch.func.vmap``; ``RunConfig.fused`` makes each train/eval
+call one batched call).
 Payload codecs (``RunConfig.uplink_codec`` / ``downlink_codec`` ->
 ``repro_torch.comm``) compress what crosses the wire around any
 strategy.  Client availability (``RunConfig.client_sim`` ->
@@ -15,7 +19,7 @@ wasted-bytes CommStats ledger.
 from repro_torch.comm import CodecBackend, PayloadCodec, make_codec
 from repro_torch.engine.availability import ClientSimulator, RoundSim
 from repro_torch.engine.backends import ExecutionBackend, LoopBackend, \
-    make_backend
+    StackedClientBase, VmapBackend, make_backend
 from repro_torch.engine.engine import FedEngine
 from repro_torch.engine.strategies import FedAvgBaseline, OfflineNas, \
     RealTimeNas, Strategy
@@ -28,6 +32,7 @@ __all__ = [
     "ClientSimulator", "CodecBackend", "CommStats", "ERROR_COUNT_BYTES",
     "EngineResult", "ExecutionBackend", "FedAvgBaseline", "FedEngine",
     "LoopBackend", "OfflineNas", "PayloadCodec", "RealTimeNas",
-    "RoundReport", "RoundSim", "RunConfig", "Strategy", "history_dict",
-    "make_backend", "make_codec",
+    "RoundReport", "RoundSim", "RunConfig", "StackedClientBase",
+    "Strategy", "VmapBackend", "history_dict", "make_backend",
+    "make_codec",
 ]

@@ -171,8 +171,28 @@ class RunConfig:
         CPU) or ``"torch"`` (leaf by leaf in PyTorch).  Unknown values
         raise here, at config time.
       * ``backend`` — client-execution backend: ``"loop"`` (one local
-        update per (individual, client) pair).  Validated when the engine
-        builds the backend.
+        update per (individual, client) pair) or ``"vmap"``
+        (``ClientBatch``-stacked shards on the device; a group's clients
+        train in turn from one stack, evaluation runs under
+        ``torch.func.vmap``, O(population) batched calls per
+        generation).  Validated when the engine builds the
+        backend.
+      * ``vmap_eval_tile`` — clients evaluated together per inner
+        ``vmap`` tile in the batched backend's forward-only evaluation
+        (>= 1).  Tiling never changes results: error counts are
+        integers, so any client-axis batching gives the same totals.
+      * ``fused`` — run each generation of the batched backend as a
+        constant number of batched calls ("dispatches", each one call of
+        a batched program): one per ``train_fill`` (local SGD of every
+        group, the per-group weighting and the Algorithm 3 partial sums;
+        on CUDA the new master is written into the previous master's
+        own tensors when nothing reads them afterwards,
+        ``master_donation_safe``) and one per evaluation call (every key
+        -> one on-device wrong-count vector, read by the host once).  On
+        the ``"kernel"`` route a fused ``train_fill`` is one call for
+        every group's uploads, then one K1 launch per shape bucket.
+        Defaults to True; ``False`` restores the per-bucket / per-key
+        calls.  Ignored by the ``"loop"`` backend.
       * ``device`` — where the master, the client shards and all training
         run: ``"cuda"`` (the default) or ``"cpu"``.  The engine raises if
         ``"cuda"`` is asked for and no GPU is present; it never moves to
@@ -210,7 +230,9 @@ class RunConfig:
     mutation: float = 0.1
     seed: int = 0
     aggregate_backend: str = "kernel"   # Algorithm 3 route: 'torch' | 'kernel'
-    backend: str = "loop"               # execution: 'loop'
+    backend: str = "loop"               # execution: 'loop' | 'vmap'
+    vmap_eval_tile: int = 32            # clients vmapped per eval tile
+    fused: bool = True                  # one call per generation phase
     device: str = "cuda"                # 'cuda' | 'cpu'
     uplink_codec: str = "none"          # client->server payload codec
     downlink_codec: str = "none"        # server->client payload codec
@@ -227,6 +249,9 @@ class RunConfig:
             raise ValueError(
                 f"unknown aggregate_backend {self.aggregate_backend!r}; "
                 f"available: {list(AGGREGATE_BACKENDS)}")
+        if self.vmap_eval_tile < 1:
+            raise ValueError(
+                f"vmap_eval_tile must be >= 1, got {self.vmap_eval_tile}")
         try:
             dev = torch.device(self.device)
         except RuntimeError as e:

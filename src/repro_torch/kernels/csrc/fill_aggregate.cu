@@ -17,6 +17,13 @@
 // instead.  Row offsets k * P are 64-bit: m * P passes 2^31 at m >= 83 on
 // the full CIFAR supernet.
 //
+// out may be prev itself (the TPU kernel's donate_prev,
+// input_output_aliases={3: 0}), so the stacked route's last chunk
+// allocates no fresh (P,) vector.  prev and out therefore carry no
+// __restrict__: aliasing two restrict pointers is undefined.  Writing in
+// place is safe because each thread reads prev[i] once, before it writes
+// out[i], and no other thread touches index i.
+//
 // Plain C interface, loaded with ctypes: launches on the caller's stream,
 // does not synchronise, allocates nothing, and returns cudaGetLastError().
 
@@ -30,9 +37,8 @@ constexpr int kThreads = 256;
 __global__ void fill_aggregate_kernel(const float* __restrict__ clients,
                                       const float* __restrict__ masks,
                                       const float* __restrict__ weights,
-                                      const float* __restrict__ prev,
-                                      float* __restrict__ out,
-                                      int m, int64_t p) {
+                                      const float* prev, float* out, int m,
+                                      int64_t p) {
   const int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
   if (i >= p) return;
   const float pv = prev[i];

@@ -44,9 +44,16 @@ def _common_device(name: str, *tensors: torch.Tensor) -> torch.device:
 
 
 def fill_aggregate(clients: torch.Tensor, masks: torch.Tensor,
-                   weights: torch.Tensor, prev: torch.Tensor) -> torch.Tensor:
+                   weights: torch.Tensor, prev: torch.Tensor,
+                   donate_prev: bool = False) -> torch.Tensor:
     """clients, masks: (m, P); weights: (m,); prev: (P,), float32 and
-    contiguous -> (P,) float32 (paper Algorithm 3 on a flat vector)."""
+    contiguous -> (P,) float32 (paper Algorithm 3 on a flat vector).
+
+    ``donate_prev`` writes the result into ``prev``'s storage and
+    returns ``prev`` (the JAX package's ``input_output_aliases={3: 0}``):
+    on the card the in-place kernel, which allocates nothing; on the CPU
+    the plain version, copied over ``prev``.  Pass it only where the
+    caller no longer needs ``prev``."""
     dev = _common_device("fill_aggregate", clients, masks, weights, prev)
     for nm, t in (("clients", clients), ("masks", masks),
                   ("weights", weights), ("prev", prev)):
@@ -67,9 +74,12 @@ def fill_aggregate(clients: torch.Tensor, masks: torch.Tensor,
     if m < 1 or p < 1:
         raise ValueError(f"fill_aggregate: empty input (m={m}, P={p})")
     if dev.type == "cpu":
+        if donate_prev:
+            return ref.fill_aggregate_(clients, masks, weights, prev)
         return ref.fill_aggregate(clients, masks, weights, prev)
     from repro_torch.kernels import fill_aggregate as _fa
-    out = _fa.launch(clients, masks, weights, prev)
+    out = _fa.launch(clients, masks, weights, prev,
+                     out=prev if donate_prev else None)
     LAUNCHES["fill_aggregate"] += 1
     return out
 

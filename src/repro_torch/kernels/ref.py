@@ -22,6 +22,12 @@ def fill_aggregate(clients, masks, weights, prev):
     return torch.einsum("m,mp->p", weights.float(), filled).to(prev.dtype)
 
 
+def fill_aggregate_(clients, masks, weights, prev):
+    """``fill_aggregate`` written over ``prev``, which is returned (the
+    in-place variant; the same bits)."""
+    return prev.copy_(fill_aggregate(clients, masks, weights, prev))
+
+
 def expert_gemm(x, w):
     """x: (E, C, D); w: (E, D, F) -> (E, C, F) in x's dtype: the
     per-expert product ``x[e] @ w[e]`` on float32 copies, rounded once."""

@@ -168,11 +168,21 @@ def test_default_device_is_cuda_and_never_falls_back(apis):
         FedEngine(apis[1], clients, RunConfig(population=4, generations=1))
 
 
-@pytest.mark.parametrize("name,exc", [("vmap", NotImplementedError),
-                                      ("mesh", NotImplementedError),
+@pytest.mark.parametrize("name,exc", [("mesh", NotImplementedError),
                                       ("bogus", ValueError)])
 def test_unported_backends_raise_at_construction(apis, name, exc):
     clients = tiny_clients(make_classification, make_clients, partition_iid)
     with pytest.raises(exc):
         FedEngine(apis[1], clients,
                   RunConfig(population=4, device="cpu", backend=name))
+
+
+def test_vmap_backend_builds_on_the_cpu(apis):
+    """``backend="vmap"`` is ported (tests/test_torch_backends.py holds
+    it against the JAX package): it builds here, on the CPU."""
+    from repro_torch.engine import VmapBackend
+    clients = tiny_clients(make_classification, make_clients, partition_iid)
+    eng = FedEngine(apis[1], clients,
+                    RunConfig(population=4, device="cpu", backend="vmap"))
+    assert isinstance(eng.backend, VmapBackend)
+    assert eng.backend.name == "vmap" and eng.backend.dispatches == 0

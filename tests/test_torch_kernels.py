@@ -98,6 +98,26 @@ def test_plain_fill_aggregate_matches_reference(jax_ref, m, p):
                                rtol=TOL, atol=TOL)
 
 
+@pytest.mark.parametrize("m,p", [(1, 1000), (3, 8193)])
+def test_plain_fill_aggregate_in_place(m, p):
+    """``donate_prev`` on the CPU: the plain version written over prev,
+    which is returned (same storage), equal bit for bit to the
+    out-of-place result; no kernel launches."""
+    cl, mk, w, prev = map(torch.from_numpy, rand_inputs(m, p, seed=p))
+    want = ops.fill_aggregate(cl, mk, w, prev)
+    keep = prev.clone()
+    ptr = prev.data_ptr()
+    before = dict(ops.LAUNCHES)
+    out = ops.fill_aggregate(cl, mk, w, prev, donate_prev=True)
+    assert out is prev and out.data_ptr() == ptr
+    assert torch.equal(out.view(torch.int32), want.view(torch.int32))
+    assert not torch.equal(prev, keep)          # prev itself was written
+    again = keep.clone()
+    ref.fill_aggregate_(cl, mk, w, again)
+    assert torch.equal(again, want)
+    assert ops.LAUNCHES == before
+
+
 def flash_np(b, s, h, kh, d, seed):
     rng = np.random.default_rng(seed)
     return (rng.normal(size=(b, s, h, d)).astype(np.float32),
@@ -776,6 +796,31 @@ def test_cuda_kernel_matches_plain_version(cuda, m, p):
     w1 = w / w.sum()
     torch.testing.assert_close(ops.fill_aggregate(cl, zeros, w1, prev), prev,
                                rtol=TOL, atol=TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,p", [(1, 1000), (2, 8193), (8, 1 << 20)])
+def test_cuda_kernel_in_place_matches_out_of_place(cuda, m, p):
+    """K1's in-place variant: bit for bit the out-of-place result,
+    written into prev's storage, allocating nothing; both counted in
+    ``LAUNCHES`` and apart by variant."""
+    from repro_torch.kernels import fill_aggregate as kfa
+    cl, mk, w, prev = (torch.from_numpy(a).to(cuda)
+                       for a in rand_inputs(m, p, seed=p + 1))
+    want = ops.fill_aggregate(cl, mk, w, prev)
+    torch.cuda.synchronize()
+    launches = ops.LAUNCHES["fill_aggregate"]
+    variants = dict(kfa.VARIANT_LAUNCHES)
+    ptr = prev.data_ptr()
+    allocated = torch.cuda.memory_allocated(cuda)
+    out = ops.fill_aggregate(cl, mk, w, prev, donate_prev=True)
+    torch.cuda.synchronize()
+    assert torch.cuda.memory_allocated(cuda) == allocated
+    assert out is prev and out.data_ptr() == ptr
+    assert torch.equal(out.view(torch.int32), want.view(torch.int32))
+    assert ops.LAUNCHES["fill_aggregate"] == launches + 1
+    assert kfa.VARIANT_LAUNCHES == {
+        **variants, "in_place": variants["in_place"] + 1}
 
 
 @pytest.mark.cuda
