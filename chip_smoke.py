@@ -121,10 +121,29 @@ Phases, each fatal on failure:
    adds K1's per-group partials, so its keys and CommStats are held to
    the loop run's, its master gap logged, and one ``train_fill`` held to
    the loop's within 1e-6; generation 2's ``round_s`` and the peak
-   device memory of each run beside phase 5's.
+   device memory of each run beside phase 5's;
+12. telemetry and checkpoints at full width: phase 5's ``loop`` run,
+   phase 11's fused kernel-route ``vmap`` run and phase 7's
+   ``"int8:kernel"`` run again with ``telemetry={"sink": "jsonl:..."}``
+   (launch counts zeroed before and read after), each against the same
+   run off earlier in this process: keys and CommStats equal, masters bit
+   for bit, dispatches, launches and K1's variants equal; the JAX
+   package's signature counts (``client_update`` and ``evaluator``;
+   ``fused_uploads`` and ``fused_eval_shared``), new signatures in
+   generation 1 only, the codec, ``download`` and ``host_fetch`` span
+   paths, one jsonl line a generation, ``live_device_bytes`` equal to
+   ``torch.cuda.memory_allocated`` at each round's end, and generation
+   2's ``round_s`` on and off logged; then the ``loop`` and ``vmap`` runs
+   under ``torch.profiler`` (``profiler_dir``), masters still bit for bit,
+   generation 2 split by phase from each Chrome trace (host ms, device
+   ms of the kernels launched inside each span, device busy time, idle
+   share, the five kernels with the most time); and phase 5's master
+   through ``save_pytree`` and ``restore_latest`` onto a CUDA template,
+   bit for bit with one key per leaf.
 
-Prints the kernels as one JSON line, then the ``nvidia-smi`` line, then
-``{"ok": true, "device": {...}}`` as the last line.  Exits non-zero
+Prints the traced rounds as one JSON line, the kernels as one JSON line,
+then the ``nvidia-smi`` line, then ``{"ok": true, "device": {...}}`` as
+the last line.  Exits non-zero
 without that line if any phase fails or no CUDA device is present.
 """
 from __future__ import annotations
@@ -134,6 +153,7 @@ import json
 import math
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 from pathlib import Path
@@ -143,6 +163,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
+from repro_torch.ckpt import restore_latest, save_pytree  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import cnn_supernet_api  # noqa: E402
 from repro_torch.data import make_classification, make_clients, \
@@ -161,6 +182,7 @@ from repro_torch.launch.serve import greedy_generate, make_decode_step, \
 from repro_torch.models import moe  # noqa: E402
 from repro_torch.models import transformer as tr  # noqa: E402
 from repro_torch.models.ssm import ssd_chunked_torch  # noqa: E402
+from repro_torch.obs import load_trace, round_split, traced  # noqa: E402
 
 TOL = 1e-6              # <= 8 float32 terms summed in another order, FMA
 MASTER_TOL = 1e-4       # route-to-route gap of the final master
@@ -775,9 +797,11 @@ def check_one_fill(api, clients, label: str, cfg_kw: dict) -> None:
     torch.cuda.empty_cache()
 
 
-def check_vmap(api, clients, loop_run, loop_peak: int, card: str) -> int:
+def check_vmap(api, clients, loop_run, loop_peak: int, card: str
+               ) -> tuple:
     """``backend="vmap"`` at full width against phase 5's ``loop`` run.
-    Returns K1's in-place launches in the fused kernel-route run."""
+    Returns K1's in-place launches in the fused kernel-route run and that
+    run as phase 12's reference (``reference``)."""
     gens, pop = RUN["generations"], RUN["population"]
     n_fill = gens + 1
     fused_bound = 2 * gens + 1
@@ -801,7 +825,7 @@ def check_vmap(api, clients, loop_run, loop_peak: int, card: str) -> int:
          n_fill * (pop - 1), 2 * pop * (n_fill + gens), False),
     ]
     rows = [("loop (phase 5)", loop_run.reports[-1].round_s, loop_peak)]
-    in_place_launches = None
+    in_place_launches = fused_ref = None
     for (label, cfg_kw, in_place, out_of_place, dispatches,
          strict) in cases:
         result, eng, peak = timed_run(api, clients, label, cfg_kw)
@@ -809,6 +833,7 @@ def check_vmap(api, clients, loop_run, loop_peak: int, card: str) -> int:
         expect_fill_variants(label, in_place, out_of_place)
         if in_place_launches is None:
             in_place_launches = kfa.VARIANT_LAUNCHES["in_place"]
+            fused_ref = reference(result, eng)
         log(f"{label}: dispatches {eng.backend.dispatches}, peak device "
             f"memory {peak} B")
         if eng.backend.dispatches != dispatches:
@@ -852,7 +877,221 @@ def check_vmap(api, clients, loop_run, loop_peak: int, card: str) -> int:
     for label, round_s, peak in rows:
         log(f"generation 2 round_s on {card}: {label}: {round_s!r} s, peak "
             f"device memory {peak} B")
-    return in_place_launches
+    return in_place_launches, fused_ref
+
+
+# ---------------------------------------------------------------------------
+# phase 12: telemetry and checkpoints at full width
+# ---------------------------------------------------------------------------
+
+def reference(result, eng) -> dict:
+    """A run as phase 12 holds its telemetry twin to it: the result, its
+    master moved to the host, its dispatches and its launch counts (read
+    just after the run)."""
+    master = result.extras["final_master"]
+    result.extras["final_master"] = {k: v.cpu() for k, v in master.items()}
+    return {"result": result, "dispatches": eng.backend.dispatches,
+            "launches": dict(ops.LAUNCHES),
+            "variants": dict(kfa.VARIANT_LAUNCHES)}
+
+
+def bitwise_master(a, b, label: str) -> None:
+    """Equal keys, equal shapes and dtypes, equal bits."""
+    if list(a) != list(b) or not all(
+            a[k].dtype == b[k].dtype
+            and torch.equal(a[k].cpu(), b[k].cpu()) for k in a):
+        raise AssertionError(f"{label}: masters differ (max abs diff "
+                             f"{master_diff(a, b)!r})")
+
+
+# (label, run config, trace_counts, span paths that must appear).  The
+# fused kernel route's local SGD program is the JAX package's pallas
+# route's "fused_uploads": Algorithm 3 then runs on K1, outside it
+TELEMETRY_RUNS = (
+    ("loop (phase 5)", dict(RUN, aggregate_backend="kernel"),
+     {"client_update": 1, "evaluator": 1}, ()),
+    ("vmap fused, kernel route (phase 11)",
+     dict(RUN, backend="vmap", aggregate_backend="kernel"),
+     {"fused_uploads": 1, "fused_eval_shared": 1},
+     ("fill_train/download", "eval/host_fetch")),
+    ("codec path int8:kernel (phase 7)",
+     dict(RUN, uplink_codec="int8:kernel", downlink_codec="int8:kernel"),
+     {"client_update": 1, "evaluator": 1},
+     ("fill_train/codec_decode", "fill_train/codec_encode",
+      "eval/codec_decode")),
+)
+
+
+def telemetry_twin(api, clients, label, cfg_kw, telemetry, ref) -> tuple:
+    """The run of ``cfg_kw`` again with ``telemetry`` on, launch counts
+    zeroed just before and read just after, held to ``ref`` (the same
+    configuration off, earlier in this process): keys, CommStats,
+    masters bit for bit, dispatches, launches and K1's variants equal.
+    Returns (result, engine, [(live_device_bytes, memory_allocated)] at
+    each round's end)."""
+    eng = FedEngine(api, clients, RunConfig(telemetry=telemetry, **cfg_kw))
+    live = []
+
+    def at_round_end(gen, report):
+        event = eng.telemetry.ring.events[-1]
+        live.append((event.gauges.get("live_device_bytes"),
+                     torch.cuda.memory_allocated()))
+
+    zero_launches()
+    result = eng.run(callback=at_round_end)
+    torch.cuda.synchronize()
+    check_run(result, label)
+    same_trajectory(ref["result"], result, f"{label}, telemetry on vs off",
+                    0.0)
+    bitwise_master(ref["result"].extras["final_master"],
+                   result.extras["final_master"], f"{label}, telemetry on")
+    for what, got, want in (
+            ("dispatches", eng.backend.dispatches, ref["dispatches"]),
+            ("launches", dict(ops.LAUNCHES), ref["launches"]),
+            ("fill_aggregate variants", dict(kfa.VARIANT_LAUNCHES),
+             ref["variants"])):
+        if got != want:
+            raise AssertionError(f"{label}, telemetry on: {what} {got}, off "
+                                 f"{want}")
+    return result, eng, live
+
+
+def check_telemetry(api, clients, refs: list, card: str) -> dict:
+    """(a) each of ``TELEMETRY_RUNS`` again with a jsonl sink, held to its
+    reference in ``refs`` (``telemetry_twin``): the JAX package's
+    signature counts, a new signature in generation 1 only, the span
+    paths, one jsonl line a generation, ``live_device_bytes`` the
+    allocator's count at each round's end, generation 2's ``round_s`` on
+    and off logged; (b) the loop and fused vmap runs again under
+    ``torch.profiler``, masters still bit for bit, and generation 2 split
+    by phase from each Chrome trace (``obs.round_split``), beside the
+    unprofiled run's ``round_s`` and host ms by span from (a) and the
+    idle share of that ``round_s`` (the profiler slows the host, not the
+    device).  Returns the splits by label."""
+    gens = RUN["generations"]
+    splits, unprofiled = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for i, ((label, cfg_kw, counts, paths), ref) in enumerate(
+                zip(TELEMETRY_RUNS, refs)):
+            jsonl = Path(tmp) / f"run{i}.jsonl"
+            result, eng, live = telemetry_twin(
+                api, clients, label, cfg_kw, {"sink": f"jsonl:{jsonl}"}, ref)
+            eng.telemetry.sink.close()
+            tel = result.telemetry
+            if tel.trace_counts != counts:
+                raise AssertionError(f"{label}: trace_counts "
+                                     f"{tel.trace_counts}, expected {counts}")
+            recompiles = [e.recompiles for e in tel.events]
+            if recompiles != [counts] + [{}] * (gens - 1):
+                raise AssertionError(f"{label}: recompiles {recompiles}")
+            seen = {p for e in tel.events for p in e.spans}
+            missing = [p for p in paths if p not in seen]
+            if missing:
+                raise AssertionError(f"{label}: span paths {missing} missing "
+                                     f"from {sorted(seen)}")
+            lines = [json.loads(x) for x in jsonl.read_text().splitlines()]
+            if [x["gen"] for x in lines] != list(range(1, gens + 1)):
+                raise AssertionError(f"{label}: jsonl generations "
+                                     f"{[x['gen'] for x in lines]}")
+            if any(a != b for a, b in live):
+                raise AssertionError(f"{label}: live_device_bytes vs "
+                                     f"memory_allocated at round end {live}")
+            last = tel.events[-1]
+            unprofiled[label] = {
+                "round_s": last.round_s,
+                "host_ms": {p: t * 1e3 for p, t in last.spans.items()}}
+            log(f"{label}, telemetry on: bit for bit the run off; "
+                f"trace_counts {tel.trace_counts}; generation {gens} spans "
+                f"{last.span_counts}, host ms {unprofiled[label]['host_ms']}"
+                f"; live_device_bytes at round end {[a for a, _ in live]}")
+            log(f"generation {gens} round_s on {card}: {label}: telemetry "
+                f"on {result.reports[-1].round_s!r} s, off "
+                f"{ref['result'].reports[-1].round_s!r} s")
+            del result, eng
+        for i, ((label, cfg_kw, _, _), ref) in enumerate(
+                zip(TELEMETRY_RUNS[:2], refs)):
+            prof = Path(tmp) / f"prof{i}"
+            result, _, _ = telemetry_twin(
+                api, clients, f"{label}, profiled", cfg_kw,
+                {"profiler_dir": str(prof)}, ref)
+            split = round_split(load_trace(str(prof)),
+                                result.telemetry.events, gens)
+            if not split["device_busy_ms"] > 0.0:
+                raise AssertionError(f"{label}: the capture traced no "
+                                     "device activity")
+            split["unprofiled"] = dict(unprofiled[label], idle_share=(
+                1.0 - split["device_busy_ms"]
+                / (unprofiled[label]["round_s"] * 1e3)))
+            log(f"{label}, profiled: generation {gens} round_s "
+                f"{split['round_s']!r} s, device busy "
+                f"{split['device_busy_ms']!r} ms of {split['window_ms']!r} "
+                f"ms, idle share {split['idle_share']!r} (of the unprofiled "
+                f"round_s: {split['unprofiled']['idle_share']!r}); capture "
+                f"consistent with the RoundEvent: {split['consistent']}")
+            splits[label] = split
+            del result
+    return splits
+
+
+def on_off_round_s(api, clients) -> dict:
+    """Generation 2's ``round_s`` with telemetry off, on, on, off, in turn,
+    for the loop and the fused vmap runs of ``TELEMETRY_RUNS`` (the
+    default ``TelemetryConfig``): what telemetry costs a round, measured
+    within one phase of one process.  No limit."""
+    out = {}
+    for label, cfg_kw, _, _ in TELEMETRY_RUNS[:2]:
+        times = {"off": [], "on": []}
+        for tel in ("off", "on", "on", "off"):
+            eng = FedEngine(api, clients, RunConfig(
+                telemetry=tel == "on", **cfg_kw))
+            times[tel].append(eng.run().reports[-1].round_s)
+            del eng
+        out[label] = times
+        log(f"{label}: generation 2 round_s, telemetry off / on in turn: "
+            f"{times}")
+    return out
+
+
+def traced_call_us(master: dict, clients) -> float:
+    """Host µs that ``obs.traced`` adds to one call of the loop backend's
+    ``client_update`` at full width (the signature of the master, key and
+    shard, and one ``record_function``), around a function that does
+    nothing; the median of 5 runs of 1000 calls.  It wraps every backend
+    program, telemetry on or off."""
+    on_card = {k: v.cuda() for k, v in master.items()}
+    xb, yb = (torch.as_tensor(a, device="cuda") for a in clients[0].train)
+    key = np.zeros(12, np.int32)
+    wrapped = traced("client_update", {}, lambda *args: None)
+    runs = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        for _ in range(1000):
+            wrapped(on_card, key, xb, yb, 0.01)
+        runs.append((time.perf_counter() - t0) * 1e3)
+    return sorted(runs)[2]
+
+
+def check_checkpoint(master: dict) -> None:
+    """The full-width master through ``save_pytree`` and back onto a CUDA
+    template with ``restore_latest``: bit for bit, on the card, one npz
+    key per leaf."""
+    on_card = {k: v.cuda() for k, v in master.items()}
+    template = {k: torch.zeros_like(v) for k, v in on_card.items()}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = save_pytree(tmp, on_card, step=RUN["generations"])
+        with np.load(path) as data:
+            n_keys = len(data.files)
+        restored, step = restore_latest(tmp, template)
+    torch.cuda.synchronize()
+    if step != RUN["generations"] or n_keys != len(on_card):
+        raise AssertionError(f"checkpoint: step {step}, {n_keys} keys for "
+                             f"{len(on_card)} leaves")
+    if any(v.device.type != "cuda" for v in restored.values()):
+        raise AssertionError("checkpoint: restored off the card")
+    bitwise_master(on_card, restored, "checkpoint")
+    log(f"checkpoint: {len(on_card)} leaves, {n_keys} keys, "
+        f"{sum(v.numel() for v in on_card.values())} parameters back bit "
+        f"for bit on {next(iter(restored.values())).device}")
 
 
 # ---------------------------------------------------------------------------
@@ -1079,8 +1318,8 @@ def time_flash(card: str) -> dict:
     ``enable_gqa``, the window as a boolean mask).  Bound: q, k, v read
     and out written once; 4 D flops per unmasked (query, key) pair (q.k
     and p.v) at the bf16 tensor-core rate.  The plain version is timed at
-    the first case.  Returns the first case's numbers, with every case
-    under ``cases``."""
+    every case.  Returns the first case's numbers, with every case under
+    ``cases``."""
     sdpa = torch.nn.functional.scaled_dot_product_attention
     cases = []
     for shape, window in FLASH_TIMED:
@@ -1104,16 +1343,15 @@ def time_flash(card: str) -> dict:
         res = {"shape": list(shape), "window": window,
                "ms": device_ms(kernel, 20),
                "library_ms": device_ms(library, 20),
+               "plain_ms": device_ms(lambda: ref.flash_attention(
+                   q, k, v, window=window), 5),
                **bound(nbytes, flops, BF16_FLOPS)}
-        if not cases:
-            res["plain_ms"] = device_ms(
-                lambda: ref.flash_attention(q, k, v), 5)
         call_ms = median_ms(kernel, 20)
         log(f"timing flash_attention {shape} bf16 causal window {window} "
             f"on {card}: kernel {res['ms']!r} ms (one call with its "
             f"dispatch {call_ms!r} ms), bound {res['bound_ms']!r} ms "
             f"({res['bound_by']}, {nbytes} B, {flops} flop), plain "
-            f"{res.get('plain_ms', float('nan'))!r} ms, library (sdpa) "
+            f"{res['plain_ms']!r} ms, library (sdpa) "
             f"{res['library_ms']!r} ms")
         cases.append(res)
         del q, k, v, qt, kt, vt
@@ -1568,14 +1806,18 @@ def main() -> int:
     # 5. the main path, kernel route, at full width
     clients = full_width_clients()
     torch.cuda.reset_peak_memory_stats()
+    main_eng = FedEngine(api, clients, RunConfig(aggregate_backend="kernel",
+                                                 **RUN))
     zero_launches()
-    kernel_run = FedEngine(api, clients, RunConfig(
-        aggregate_backend="kernel", **RUN)).run()
+    kernel_run = main_eng.run()
     torch.cuda.synchronize()
     # 2 train_fill in generation 1, then 1 per generation
     n_fill = RUN["generations"] + 1
     launches = expect_launches("main path", {"fill_aggregate": n_fill})
     expect_fill_variants("main path", 0, n_fill)
+    # phase 12 holds its telemetry runs to these (masters on the host)
+    refs = {"loop": reference(kernel_run, main_eng)}
+    del main_eng
     check_run(kernel_run, "main path")
     for r in kernel_run.reports:
         log(f"main path generation {r.gen}: round_s {r.round_s!r}, best_err "
@@ -1591,12 +1833,7 @@ def main() -> int:
         log(f"torch route generation {r.gen}: round_s {r.round_s!r}")
     same_trajectory(kernel_run, torch_run, "kernel vs torch route",
                     MASTER_TOL)
-    # phase 11 holds the vmap runs against this one: keep its master on
-    # the host
-    master = kernel_run.extras["final_master"]
-    kernel_run.extras["final_master"] = {k: v.cpu() for k, v in
-                                         master.items()}
-    del torch_run, master
+    del torch_run
     smoke = cnn_supernet_api(get_config("cifar-supernet", smoke=True))
     x, y = make_classification(0, 480, image=8, signal=1.5, noise=0.5)
     small = make_clients(x, y, partition_iid(0, 480, 8), batch=20,
@@ -1616,14 +1853,18 @@ def main() -> int:
     for route in ("kernel", "torch"):
         spec = f"int8:{route}"
         torch.cuda.reset_peak_memory_stats()
+        eng = FedEngine(api, clients, RunConfig(
+            uplink_codec=spec, downlink_codec=spec, **RUN))
         zero_launches()
-        run = FedEngine(api, clients, RunConfig(
-            uplink_codec=spec, downlink_codec=spec, **RUN)).run()
+        run = eng.run()
         torch.cuda.synchronize()
         n_int8 = roundtrips * N_CHUNKS if route == "kernel" else 0
         got = expect_launches(f"codec path {spec}", {
             "fill_aggregate": n_fill, "int8_scale": n_int8,
             "quantize_int8": n_int8, "dequantize_int8": n_int8})
+        if route == "kernel":
+            refs["int8"] = reference(run, eng)
+        del eng
         check_run(run, f"codec path {spec}")
         st = run.stats
         if not (st.up_wire_bytes < st.up_bytes
@@ -1691,9 +1932,20 @@ def main() -> int:
         check_replay_smoke()
 
     # 11. the batched vmap backend at full width against phase 5's run
-    in_place_launches = check_vmap(api, clients, kernel_run, main_peak,
-                                   card)
+    in_place_launches, refs["vmap"] = check_vmap(api, clients, kernel_run,
+                                                 main_peak, card)
     del kernel_run
+
+    # 12. telemetry on the main path, the traced round, the checkpoint
+    splits = check_telemetry(api, clients, [refs["loop"], refs["vmap"],
+                                            refs["int8"]], card)
+    check_checkpoint(refs["loop"]["result"].extras["final_master"])
+    on_off = on_off_round_s(api, clients)
+    splits["traced_call_us"] = traced_call_us(
+        refs["loop"]["result"].extras["final_master"], clients)
+    log(f"obs.traced adds {splits['traced_call_us']!r} µs to a full-width "
+        f"client_update call on {card}")
+    del refs
 
     kernels = [{
         "name": "fill_aggregate", "route": "cuda",
@@ -1754,6 +2006,8 @@ def main() -> int:
     if any(not math.isfinite(k[f]) for k in kernels
            for f in ("ms", "plain_ms", "bound_ms")):
         raise AssertionError(f"non-finite timing: {kernels}")
+    print(json.dumps({"traced_round": splits, "on_off_round_s": on_off,
+                      "card": card}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -36,12 +36,16 @@ import numpy as np
 from repro_torch.comm.codec import PayloadCodec
 from repro_torch.comm.error_feedback import ErrorFeedback, _tree_add, \
     _tree_sub
+from repro_torch.obs import NULL_TELEMETRY
 
 Params = Any
 
 
 class CodecBackend:
     """Wrap ``inner`` with uplink/downlink payload codecs."""
+
+    # shared no-op unless FedEngine attaches a real Telemetry (obs)
+    telemetry = NULL_TELEMETRY
 
     def __init__(self, inner, uplink: PayloadCodec, downlink: PayloadCodec):
         self.inner = inner
@@ -72,7 +76,11 @@ class CodecBackend:
     # -- codec application ---------------------------------------------------
 
     def _down(self, params: Params) -> Params:
-        return self.downlink.roundtrip(params)
+        # telemetry "codec_decode": the downlink roundtrip — what every
+        # client reconstructs from the compressed broadcast (nests under
+        # fill_train/eval when the InstrumentedBackend wraps this one)
+        with self.telemetry.span("codec_decode"):
+            return self.downlink.roundtrip(params)
 
     def _up(self, sent_down: Params, raw: Params,
             stream: Optional[str] = None) -> Params:
@@ -82,11 +90,14 @@ class CodecBackend:
         (ephemeral models) compresses without a residual."""
         if self.uplink.is_identity:
             return raw
-        delta = _tree_sub(raw, sent_down)
-        sent = self._ef[stream].step(delta) if stream is not None \
-            else self.uplink.roundtrip(delta)
-        new = _tree_add(sent_down, sent)
-        return {k: v.to(raw[k].dtype) for k, v in new.items()}
+        # telemetry "codec_encode": the (error-feedback) uplink
+        # compression of the aggregated update
+        with self.telemetry.span("codec_encode"):
+            delta = _tree_sub(raw, sent_down)
+            sent = self._ef[stream].step(delta) if stream is not None \
+                else self.uplink.roundtrip(delta)
+            new = _tree_add(sent_down, sent)
+            return {k: v.to(raw[k].dtype) for k, v in new.items()}
 
     # -- execution-backend protocol ------------------------------------------
 

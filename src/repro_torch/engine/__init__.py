@@ -14,7 +14,10 @@ Payload codecs (``RunConfig.uplink_codec`` / ``downlink_codec`` ->
 strategy.  Client availability (``RunConfig.client_sim`` ->
 ``ClientSimConfig``) simulates per-round availability, post-download
 dropout and stragglers, with survivor-masked aggregation and a
-wasted-bytes CommStats ledger.
+wasted-bytes CommStats ledger.  Telemetry (``RunConfig.telemetry`` ->
+``repro_torch.obs``) records phase spans, per-program signature counts,
+gauges and ``CommStats`` deltas per round, bit for bit invisible to the
+search.
 """
 from repro_torch.comm import CodecBackend, PayloadCodec, make_codec
 from repro_torch.engine.availability import ClientSimulator, RoundSim
@@ -26,13 +29,16 @@ from repro_torch.engine.strategies import FedAvgBaseline, OfflineNas, \
 from repro_torch.engine.types import AGGREGATE_BACKENDS, BYTES_PER_PARAM, \
     ClientSimConfig, CommStats, EngineResult, ERROR_COUNT_BYTES, \
     RoundReport, RunConfig, history_dict
+from repro_torch.obs import InstrumentedBackend, RoundEvent, Telemetry, \
+    TelemetryConfig, TelemetryResult
 
 __all__ = [
     "AGGREGATE_BACKENDS", "BYTES_PER_PARAM", "ClientSimConfig",
     "ClientSimulator", "CodecBackend", "CommStats", "ERROR_COUNT_BYTES",
     "EngineResult", "ExecutionBackend", "FedAvgBaseline", "FedEngine",
-    "LoopBackend", "OfflineNas", "PayloadCodec", "RealTimeNas",
-    "RoundReport", "RoundSim", "RunConfig", "StackedClientBase",
-    "Strategy", "VmapBackend", "history_dict", "make_backend",
+    "InstrumentedBackend", "LoopBackend", "OfflineNas", "PayloadCodec",
+    "RealTimeNas", "RoundEvent", "RoundReport", "RoundSim", "RunConfig",
+    "StackedClientBase", "Strategy", "Telemetry", "TelemetryConfig",
+    "TelemetryResult", "VmapBackend", "history_dict", "make_backend",
     "make_codec",
 ]

@@ -21,7 +21,10 @@ default) a whole ``train_fill`` or evaluation call is one batched call
 ("dispatch").
 Every backend counts ``dispatches`` at the places the JAX package's
 counts them, so tests can assert the scaling claims.  Algorithm 3 routes
-through ``RunConfig.aggregate_backend`` in both.
+through ``RunConfig.aggregate_backend`` in both.  Each callable that
+counts as one dispatch is wrapped by ``repro_torch.obs.traced`` under the
+JAX package's program name, so ``trace_counts`` counts its input
+signatures as the JAX package counts its traces.
 
 ``survivors`` is ``None`` (every client completes) or the set of client
 ids whose uploads arrive this round (``ClientSimConfig`` dropout).  The
@@ -33,6 +36,7 @@ contributes exactly nothing) and masks their error counts with an
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, List, Protocol, Sequence
 
 import numpy as np
@@ -47,6 +51,7 @@ from repro_torch.core.supernet import SupernetAPI
 from repro_torch.data.pipeline import ClientBatch, ClientDataset, \
     shape_buckets
 from repro_torch.engine.types import RunConfig
+from repro_torch.obs import NULL_TELEMETRY, traced
 
 Params = Any
 
@@ -279,6 +284,8 @@ class LoopBackend:
     aggregations."""
 
     name = "loop"
+    # shared no-op unless FedEngine attaches a real Telemetry (obs)
+    telemetry = NULL_TELEMETRY
 
     def __init__(self, api: SupernetAPI, clients: Sequence[ClientDataset],
                  cfg: RunConfig):
@@ -286,8 +293,14 @@ class LoopBackend:
         self.clients = clients
         self.cfg = cfg
         self.device = torch.device(cfg.device)
-        self.update = client_update_fn(api, cfg.local_epochs, cfg.momentum)
-        self.evaluate = eval_count_fn(api)
+        # input signatures per program (repro_torch.obs.traced), the
+        # counterpart of the JAX package's trace counts
+        self.trace_counts: dict = {}
+        self.update = traced(
+            "client_update", self.trace_counts,
+            client_update_fn(api, cfg.local_epochs, cfg.momentum))
+        self.evaluate = traced("evaluator", self.trace_counts,
+                               eval_count_fn(api))
         self.dispatches = 0
 
     @staticmethod
@@ -367,6 +380,9 @@ class StackedClientBase:
     hits and misses.  Raises ``RuntimeError`` if ``cfg.device`` is a
     CUDA device and no GPU is present."""
 
+    # shared no-op unless FedEngine attaches a real Telemetry (obs)
+    telemetry = NULL_TELEMETRY
+
     def __init__(self, api: SupernetAPI, clients: Sequence[ClientDataset],
                  cfg: RunConfig):
         self.api = api
@@ -380,6 +396,10 @@ class StackedClientBase:
         self._test_cache = {}
         self._train_cache = {}
         self.dispatches = 0
+        # input signatures per program (repro_torch.obs.traced) and LRU
+        # hit/miss counters of the stacked stores — read by the telemetry
+        # round gauges
+        self.trace_counts: dict = {}
         self.cache_stats = {"train_store_hits": 0, "train_store_misses": 0,
                             "test_stack_hits": 0, "test_stack_misses": 0}
 
@@ -412,14 +432,17 @@ class StackedClientBase:
             self.cache_stats["train_store_misses"] += 1
             if len(cache) >= 2:
                 cache.pop(next(iter(cache)))  # evict least-recently-used
-            shards = [self.clients[i].train for i in key]
-            store = []
-            for idxs in shape_buckets([s[0].shape for s in shards]):
-                xb = self._put(np.stack([shards[i][0] for i in idxs]))
-                yb = self._put(np.stack([shards[i][1] for i in idxs]))
-                store.append(({key[i]: row for row, i in enumerate(idxs)},
-                              xb, yb))
-            cache[key] = store
+            # a miss is the round's host->device download of the sampled
+            # clients' train shards — the telemetry "download" phase
+            with self.telemetry.span("download"):
+                shards = [self.clients[i].train for i in key]
+                store = []
+                for idxs in shape_buckets([s[0].shape for s in shards]):
+                    xb = self._put(np.stack([shards[i][0] for i in idxs]))
+                    yb = self._put(np.stack([shards[i][1] for i in idxs]))
+                    store.append(({key[i]: row
+                                   for row, i in enumerate(idxs)}, xb, yb))
+                cache[key] = store
         return cache[key]
 
     def _client_weight(self, cid, survivors) -> float:
@@ -469,10 +492,11 @@ class StackedClientBase:
             self.cache_stats["test_stack_misses"] += 1
             if len(cache) >= 2:
                 cache.pop(next(iter(cache)))  # evict least-recently-used
-            cache[key] = [
-                dataclasses.replace(cb, xb=self._put(cb.xb),
-                                    yb=self._put(cb.yb))
-                for cb in self._group_batches(key, "test")]
+            with self.telemetry.span("download"):
+                cache[key] = [
+                    dataclasses.replace(cb, xb=self._put(cb.xb),
+                                        yb=self._put(cb.yb))
+                    for cb in self._group_batches(key, "test")]
         return cache[key]
 
     @staticmethod
@@ -497,10 +521,13 @@ class StackedClientBase:
         pooled error rates of the first ``n_keys`` keys over ``total``
         surviving test samples.  ``total == 0`` (nobody evaluated) is
         pessimistic 1.0, never a perfect score — the same convention the
-        strategies and the loop backend use."""
+        strategies and the loop backend use.  The read is the telemetry
+        ``host_fetch`` phase: with fused evaluation it is where the host
+        waits on the device's work."""
         if total == 0:
             return np.ones(n_keys)
-        wrong = counts.cpu().numpy().astype(np.int64)
+        with self.telemetry.span("host_fetch"):
+            wrong = counts.cpu().numpy().astype(np.int64)
         return wrong[:n_keys] / total
 
     def _group_bucket_arrays(self, keys, groups, total, survivors=None,
@@ -590,10 +617,73 @@ class VmapBackend(StackedClientBase):
         self.donate_master = (cfg.fused and master_donation_safe(cfg)
                               and self.device.type == "cuda")
         self._own_master = None      # the last master this backend made
+        # each callable below is one dispatch, named as the JAX package's
+        # jitted program it stands for; traced counts its input signatures
+        tc = self.trace_counts
+        self._fused_fill = traced("fused_fill", tc, self._fill_body)
+        self._fused_uploads = traced("fused_uploads", tc, self._uploads_body)
+        self._fused_eval_shared = traced("fused_eval_shared", tc,
+                                         self._eval_shared_body)
+        self._fused_eval_paired = traced("fused_eval_paired", tc,
+                                         self._eval_paired_body)
+        self._fused_fedavg = traced("fused_fedavg", tc, self._fedavg_body)
+        self._scan_update = traced("scan_update", tc, self._train)
+        self._scan_update_avg = traced("scan_update_avg", tc,
+                                       self._update_avg_body)
+        self._eval_tiles = traced("eval_tiles", tc,
+                                  functools.partial(_tiled_count,
+                                                    self.evaluate))
 
     def _train(self, master, key, xb, yb, lr):
         """One group's local SGD -> {name: (S, ...)} stacked uploads."""
         return clients_in_turn(self.update, master, key, xb, yb, lr)
+
+    # -- program bodies (one dispatch each) ---------------------------------
+
+    def _fill_body(self, master, buckets, lr):
+        """Fused fill on the torch route: every bucket's local SGD and
+        Algorithm 3 partial sums, cast back to the master's dtypes —
+        into the master's own tensors when donation is on and this
+        backend made that master."""
+        acc = None
+        for k, xb, yb, w in buckets:
+            acc = fill_bucket_partial(self._train, self.api.trained_mask,
+                                      master, k, xb, yb, self._put(w), lr,
+                                      acc)
+        donate = self.donate_master and master is self._own_master
+        return cast_like(acc, master, donate=donate)
+
+    def _uploads_body(self, master, buckets, lr):
+        """Fused local SGD of every bucket, uploads stacked per bucket
+        (the kernel route runs Algorithm 3 on K1 after it)."""
+        return [train_bucket_uploads(self._train, master, k, xb, yb, lr)
+                for k, xb, yb, _ in buckets]
+
+    def _eval_shared_body(self, params, keys, shards):
+        return accumulate_parts(
+            eval_bucket_counts(self.evaluate, params, keys, xb, yb, alive,
+                               tile=self.cfg.vmap_eval_tile)
+            for xb, yb, alive in shards)
+
+    def _eval_paired_body(self, ps, keys, shards):
+        return accumulate_parts(
+            eval_paired_bucket_counts(self.evaluate, ps, keys, xb, yb, alive,
+                                      tile=self.cfg.vmap_eval_tile)
+            for xb, yb, alive in shards)
+
+    def _fedavg_body(self, ps, keys, buckets, lr):
+        """Fused FedAvg of every individual over every bucket; ``buckets``
+        carry host float32 weights normalized by the survivor total."""
+        out = accumulate_parts(
+            fedavg_population_bucket(self._train, ps, keys, xb, yb,
+                                     self._put(wn), lr)
+            for xb, yb, wn in buckets)
+        return [cast_like(o, p) for o, p in zip(out, ps)]
+
+    def _update_avg_body(self, params, key, xb, yb, lr, wn):
+        """Non-fused FedAvg partial of one individual over one bucket."""
+        return fedavg_population_bucket(self._train, [params], [key], xb, yb,
+                                        self._put(wn), lr)[0]
 
     # -- protocol -----------------------------------------------------------
 
@@ -616,7 +706,7 @@ class VmapBackend(StackedClientBase):
             key = np.asarray(key, np.int32)
             for xb, yb, w, n in self._group_train_gather(group, survivors,
                                                          store=store):
-                out = self._train(master, key, xb, yb, lr)
+                out = self._scan_update(master, key, xb, yb, lr)
                 self.dispatches += 1
                 chunks.append((out, np.tile(key, (n, 1)), w))
         if not chunks or not any(np.any(w) for _, _, w in chunks):
@@ -639,34 +729,26 @@ class VmapBackend(StackedClientBase):
                                             survivors=survivors)
         if not buckets:
             return master
-        mask_fn = self.api.trained_mask
         if self.cfg.aggregate_backend == "kernel":
             # one call for the whole population's local SGD, then
             # Algorithm 3 on the kernel, one launch per bucket
-            outs = [train_bucket_uploads(self._train, master, k, xb, yb, lr)
-                    for k, xb, yb, _ in buckets]
+            outs = self._fused_uploads(master, buckets, lr)
             self.dispatches += 1
             chunks = [(out, np.repeat(k, w.shape[1], axis=0), w.reshape(-1))
                       for (k, _, _, w), out in zip(buckets, outs)]
-            master = fill_aggregate_stacked(master, chunks, mask_fn=mask_fn,
+            master = fill_aggregate_stacked(master, chunks,
+                                            mask_fn=self.api.trained_mask,
                                             backend="kernel", total=1.0)
             self.dispatches += len(chunks)
             return master
-        acc = None
-        for k, xb, yb, w in buckets:
-            acc = fill_bucket_partial(self._train, mask_fn, master, k, xb,
-                                      yb, self._put(w), lr, acc)
+        self._own_master = self._fused_fill(master, buckets, lr)
         self.dispatches += 1
-        donate = self.donate_master and master is self._own_master
-        self._own_master = cast_like(acc, master, donate=donate)
         return self._own_master
 
     def _fedavg_from_batches(self, params, key, batches, total, lr):
         acc = None
         for xb, yb, w, _ in batches:
-            part = fedavg_population_bucket(
-                self._train, [params], [key], xb, yb, self._put(w / total),
-                lr)[0]
+            part = self._scan_update_avg(params, key, xb, yb, lr, w / total)
             self.dispatches += 1
             acc = part if acc is None else _tree_add(acc, part)
         return cast_like(acc, params)
@@ -682,12 +764,11 @@ class VmapBackend(StackedClientBase):
         if self.cfg.fused:
             if not params_list:
                 return []
-            out = accumulate_parts(
-                fedavg_population_bucket(self._train, params_list, keys,
-                                         xb, yb, self._put(w / total), lr)
-                for xb, yb, w, _ in batches)
+            out = self._fused_fedavg(params_list, keys,
+                                     [(xb, yb, w / total)
+                                      for xb, yb, w, _ in batches], lr)
             self.dispatches += 1
-            return [cast_like(o, p) for o, p in zip(out, params_list)]
+            return out
         return [self._fedavg_from_batches(p, k, batches, total, lr)
                 for p, k in zip(params_list, keys)]
 
@@ -705,9 +786,9 @@ class VmapBackend(StackedClientBase):
             full = (m // tile) * tile
             for lo, hi, t in ((0, full, tile), (full, m, m - full)):
                 if hi > lo:
-                    wrong += int(_tiled_count(
-                        self.evaluate, params, key, batch.xb[lo:hi],
-                        batch.yb[lo:hi], alive[lo:hi], t))
+                    wrong += int(self._eval_tiles(
+                        params, key, batch.xb[lo:hi], batch.yb[lo:hi],
+                        alive[lo:hi], t))
                     self.dispatches += 1
         return wrong / total
 
@@ -720,10 +801,8 @@ class VmapBackend(StackedClientBase):
         total = self._alive_total(batches, masks)
         keys = [np.asarray(k, np.int32) for k in keys]
         if self.cfg.fused:
-            counts = accumulate_parts(
-                eval_bucket_counts(self.evaluate, params, keys, xb, yb,
-                                   alive, tile=self.cfg.vmap_eval_tile)
-                for xb, yb, alive in self._fused_shards(batches, masks))
+            counts = self._fused_eval_shared(
+                params, keys, self._fused_shards(batches, masks))
             self.dispatches += 1
             return self._rates(counts, total, len(keys))
         return np.asarray([self._eval_one(params, k, batches, masks, total)
@@ -735,11 +814,8 @@ class VmapBackend(StackedClientBase):
         total = self._alive_total(batches, masks)
         keys = [np.asarray(k, np.int32) for k in keys]
         if self.cfg.fused:
-            counts = accumulate_parts(
-                eval_paired_bucket_counts(self.evaluate, params_list, keys,
-                                          xb, yb, alive,
-                                          tile=self.cfg.vmap_eval_tile)
-                for xb, yb, alive in self._fused_shards(batches, masks))
+            counts = self._fused_eval_paired(
+                params_list, keys, self._fused_shards(batches, masks))
             self.dispatches += 1
             return self._rates(counts, total, len(keys))
         return np.asarray([self._eval_one(p, k, batches, masks, total)

@@ -5,7 +5,8 @@ per-round lr schedule, communication/compute accounting and the typed
 ``RoundReport`` history, and delegates the rest to a ``Strategy`` (what
 happens inside a round) and an execution backend (how client work runs),
 which it wraps in ``repro_torch.comm.CodecBackend`` when a payload codec
-is lossy.
+is lossy and, outermost, in ``repro_torch.obs.InstrumentedBackend`` when
+``RunConfig.telemetry`` is on.
 
     engine = FedEngine(api, clients, RunConfig(device="cuda"))
     result = engine.run()            # EngineResult
@@ -27,6 +28,8 @@ from repro_torch.engine.backends import make_backend
 from repro_torch.engine.strategies import RealTimeNas
 from repro_torch.engine.types import CommStats, EngineResult, RoundReport, \
     RunConfig
+from repro_torch.obs import NULL_TELEMETRY, InstrumentedBackend, Telemetry, \
+    attach
 from repro_torch.optim import round_decay
 
 
@@ -81,6 +84,20 @@ class FedEngine:
                 and self.downlink_codec.is_identity):
             self.backend = CodecBackend(self.backend, self.uplink_codec,
                                         self.downlink_codec)
+        # telemetry (repro_torch.obs): only when RunConfig.telemetry is
+        # enabled does the engine build a real Telemetry and wrap the
+        # backend — the InstrumentedBackend goes OUTERMOST so its
+        # fill_train/eval spans cover codec encode/decode, which nest
+        # beneath them.  Disabled runs keep the object graph they have
+        # without telemetry (everything sees the shared no-op
+        # NULL_TELEMETRY).
+        tcfg = self.cfg.telemetry
+        if tcfg is not None and tcfg.enabled:
+            self.telemetry = Telemetry(tcfg, self.device)
+            attach(self.backend, self.telemetry)
+            self.backend = InstrumentedBackend(self.backend, self.telemetry)
+        else:
+            self.telemetry = NULL_TELEMETRY
         self.rng = np.random.default_rng(self.cfg.seed)
         self.stats = CommStats()
         self.reports: list[RoundReport] = []
@@ -105,36 +122,46 @@ class FedEngine:
             reset()
         self.sim = ClientSimulator(cfg.client_sim, len(self.clients))
         self.strategy.setup(self)
-        # every round ends in host reads of its error counts, which wait
-        # for the device, so round_s times the device work too
-        t0 = t_prev = time.perf_counter()
-        for gen in range(1, cfg.generations + 1):
-            lr = float(round_decay(cfg.lr0, cfg.lr_decay, gen - 1))
-            sampled = sample_participants(self.rng, len(self.clients),
-                                          cfg.participation)
-            # availability / dropout draw (sim RNG only — the search RNG
-            # stream above is untouched by the simulation)
-            ctx = self.sim.draw_round(sampled)
-            self.round_ctx = ctx
-            report = self.strategy.round(self, gen, ctx.participants, lr)
-            report.down_gb = self.stats.down_bytes / 1e9
-            report.up_gb = self.stats.up_bytes / 1e9
-            report.train_passes = self.stats.client_train_passes
-            if ctx.active:
-                report.n_sampled = ctx.n_sampled
-                report.n_available = len(ctx.participants)
-                report.n_dropped = ctx.n_dropped
-                report.n_survivors = ctx.n_survivors
-                report.wasted_down_gb = self.stats.wasted_down_bytes / 1e9
-            now = time.perf_counter()
-            report.wall_s = now - t0      # cumulative since run()
-            report.round_s = now - t_prev  # this round's delta
-            t_prev = now
-            self.reports.append(report)
-            if callback:
-                callback(gen, report)
+        tel = self.telemetry
+        tel.start_run(self)
+        with tel.run_capture():   # torch.profiler when configured
+            # every round ends in host reads of its error counts, which
+            # wait for the device, so round_s times the device work too
+            t0 = t_prev = time.perf_counter()
+            for gen in range(1, cfg.generations + 1):
+                lr = float(round_decay(cfg.lr0, cfg.lr_decay, gen - 1))
+                with tel.span("sample"):
+                    sampled = sample_participants(self.rng,
+                                                  len(self.clients),
+                                                  cfg.participation)
+                # availability / dropout draw (sim RNG only — the search
+                # RNG stream above is untouched by the simulation)
+                with tel.span("availability"):
+                    ctx = self.sim.draw_round(sampled)
+                self.round_ctx = ctx
+                report = self.strategy.round(self, gen, ctx.participants,
+                                             lr)
+                report.down_gb = self.stats.down_bytes / 1e9
+                report.up_gb = self.stats.up_bytes / 1e9
+                report.train_passes = self.stats.client_train_passes
+                if ctx.active:
+                    report.n_sampled = ctx.n_sampled
+                    report.n_available = len(ctx.participants)
+                    report.n_dropped = ctx.n_dropped
+                    report.n_survivors = ctx.n_survivors
+                    report.wasted_down_gb = \
+                        self.stats.wasted_down_bytes / 1e9
+                now = time.perf_counter()
+                report.wall_s = now - t0      # cumulative since run()
+                report.round_s = now - t_prev  # this round's delta
+                t_prev = now
+                self.reports.append(report)
+                tel.end_round(gen, report.round_s, self)
+                if callback:
+                    callback(gen, report)
         # a stale RoundSim must not leak into strategies driven manually
         # on this engine afterwards (they fall back to an inactive ctx)
         self.round_ctx = None
         return EngineResult(reports=self.reports, stats=self.stats,
-                            extras=self.strategy.extras(self))
+                            extras=self.strategy.extras(self),
+                            telemetry=tel.result(self))

@@ -33,6 +33,7 @@ from repro_torch.core.nsga2 import fast_non_dominated_sort, knee_point, \
 from repro_torch.engine.availability import RoundSim
 from repro_torch.engine.types import BYTES_PER_PARAM, ERROR_COUNT_BYTES, \
     RoundReport
+from repro_torch.obs import NULL_TELEMETRY
 
 
 class Strategy(Protocol):
@@ -76,6 +77,12 @@ def _round_ctx(engine, participants) -> RoundSim:
     if ctx is None:
         return RoundSim.inactive(np.asarray(participants))
     return ctx
+
+
+def _telemetry(engine):
+    """The engine's telemetry, or the shared no-op for strategies driven
+    outside FedEngine (same duck-typing as ``_round_ctx``)."""
+    return getattr(engine, "telemetry", NULL_TELEMETRY)
 
 
 def _account_train(engine, keys, groups, download_models: bool,
@@ -148,6 +155,7 @@ class RealTimeNas:
     def round(self, engine, gen, participants, lr):
         cfg, api, backend = engine.cfg, engine.api, engine.backend
         ctx = _round_ctx(engine, participants)
+        tel = _telemetry(engine)
         survivors = ctx.survivors
 
         # short groups are only legitimate when clients can actually be
@@ -156,8 +164,9 @@ class RealTimeNas:
 
         # --- t == 1 only: train the parent sub-models (Algorithm 4 l.15-26)
         if gen == 1:
-            groups = sample_client_groups(engine.rng, participants,
-                                          cfg.population, strict=strict)
+            with tel.span("sample"):
+                groups = sample_client_groups(engine.rng, participants,
+                                              cfg.population, strict=strict)
             _account_train(engine, self.parents, groups,
                            download_models=True, ctx=ctx)
             if ctx.n_survivors:
@@ -166,10 +175,12 @@ class RealTimeNas:
                                                  survivors=survivors)
 
         # --- offspring: inherit weights, never reinitialize (l.27-41)
-        offspring = make_offspring(engine.rng, self.parents, cfg.population,
-                                   cfg.crossover, cfg.mutation)
-        groups = sample_client_groups(engine.rng, participants,
-                                      cfg.population, strict=strict)
+        with tel.span("sample"):
+            offspring = make_offspring(engine.rng, self.parents,
+                                       cfg.population, cfg.crossover,
+                                       cfg.mutation)
+            groups = sample_client_groups(engine.rng, participants,
+                                          cfg.population, strict=strict)
         _account_train(engine, offspring, groups,
                        download_models=(gen == 1), ctx=ctx)
         if ctx.n_survivors:
@@ -191,11 +202,12 @@ class RealTimeNas:
         objs = np.stack([errs, fl], axis=1)
 
         # --- NSGA-II environmental selection (l.50-53)
-        sel = select(objs, cfg.population)
-        self.parents = [combined[i] for i in sel]
-        front0 = fast_non_dominated_sort(objs[sel])[0]
-        knee_local = knee_point(objs[sel], front0)
-        best_local = sel[int(np.argmin(objs[sel][:, 0]))]
+        with tel.span("aggregate"):
+            sel = select(objs, cfg.population)
+            self.parents = [combined[i] for i in sel]
+            front0 = fast_non_dominated_sort(objs[sel])[0]
+            knee_local = knee_point(objs[sel], front0)
+            best_local = sel[int(np.argmin(objs[sel][:, 0]))]
 
         return RoundReport(
             gen=gen, objs=objs,
@@ -266,18 +278,22 @@ class OfflineNas:
 
     def round(self, engine, gen, participants, lr):
         cfg = engine.cfg
+        tel = _telemetry(engine)
         if self.parent_objs is None:
             self.parent_objs = self._train_and_eval(engine, self.parents,
                                                     participants, lr)
-        offspring = make_offspring(engine.rng, self.parents, cfg.population,
-                                   cfg.crossover, cfg.mutation)
+        with tel.span("sample"):
+            offspring = make_offspring(engine.rng, self.parents,
+                                       cfg.population, cfg.crossover,
+                                       cfg.mutation)
         off_objs = self._train_and_eval(engine, offspring, participants, lr)
 
         combined = list(self.parents) + list(offspring)
         objs = np.concatenate([self.parent_objs, off_objs], axis=0)
-        sel = select(objs, cfg.population)
-        self.parents = [combined[i] for i in sel]
-        self.parent_objs = objs[sel]
+        with tel.span("aggregate"):
+            sel = select(objs, cfg.population)
+            self.parents = [combined[i] for i in sel]
+            self.parent_objs = objs[sel]
 
         return RoundReport(
             gen=gen, objs=objs,

@@ -20,6 +20,8 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from repro_torch.obs.telemetry import TelemetryConfig, TelemetryResult
+
 BYTES_PER_PARAM = 4        # float32 logical payloads
 ERROR_COUNT_BYTES = 4      # one int32 error count per evaluated sub-model
 
@@ -217,7 +219,14 @@ class RunConfig:
       * ``downlink_codec`` — same spec grammar for server->client
         transfers (master broadcasts / sub-model downloads).
 
-    Telemetry is not ported yet: anything but ``None`` raises.
+    Observability (``telemetry``):
+      * a ``repro_torch.obs.TelemetryConfig`` (also accepted as a plain
+        dict, or ``True`` for all defaults; ``False`` means off) turning
+        on phase spans, per-program signature counters, resource gauges
+        and structured per-round events on ``EngineResult.telemetry``.
+        The default ``None`` means off: the engine builds the object
+        graph it builds without telemetry, and runs are bit for bit the
+        same either way (``tests/test_torch_obs.py``).
     """
     population: int = 10
     generations: int = 500
@@ -238,13 +247,19 @@ class RunConfig:
     downlink_codec: str = "none"        # server->client payload codec
     client_sim: ClientSimConfig = dataclasses.field(
         default_factory=ClientSimConfig)   # availability / dropout model
-    telemetry: Optional[dict] = None    # not ported yet (must stay None)
+    telemetry: Optional[TelemetryConfig] = None   # obs (None = off)
 
     def __post_init__(self):
         if self.client_sim is None:
             self.client_sim = ClientSimConfig()
         elif isinstance(self.client_sim, dict):
             self.client_sim = ClientSimConfig(**self.client_sim)
+        if self.telemetry is True:
+            self.telemetry = TelemetryConfig()
+        elif self.telemetry is False:
+            self.telemetry = None
+        elif isinstance(self.telemetry, dict):
+            self.telemetry = TelemetryConfig(**self.telemetry)
         if self.aggregate_backend not in AGGREGATE_BACKENDS:
             raise ValueError(
                 f"unknown aggregate_backend {self.aggregate_backend!r}; "
@@ -276,10 +291,6 @@ class RunConfig:
         from repro_torch.comm import make_codec
         make_codec(self.uplink_codec)
         make_codec(self.downlink_codec)
-        if self.telemetry is not None:
-            raise ValueError(
-                "telemetry is not yet ported to repro_torch (ROADMAP queue "
-                "1: telemetry); leave it None")
 
 
 @dataclasses.dataclass
@@ -458,6 +469,9 @@ class EngineResult:
     reports: List[RoundReport]
     stats: CommStats
     extras: Dict
+    # collected telemetry (None unless RunConfig.telemetry was enabled):
+    # the retained RoundEvent ring + final per-program signature counts
+    telemetry: Optional[TelemetryResult] = None
 
     def history(self) -> Dict:
         out = history_dict(self.reports)

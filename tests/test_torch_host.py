@@ -220,8 +220,17 @@ def test_run_config_routes_and_unported_options():
     assert (cfg.uplink_codec, cfg.downlink_codec) == ("int8", "cast")
     with pytest.raises(ValueError, match="available: \\['torch', 'kernel'\\]"):
         types.RunConfig(uplink_codec="int8:pallas")
-    with pytest.raises(ValueError, match="ROADMAP queue 1: telemetry"):
-        types.RunConfig(telemetry={"sink": "table"})
+    # telemetry is ported (tests/test_torch_obs.py): RunConfig parses it
+    # as the JAX package does
+    assert isinstance(types.RunConfig(telemetry=True).telemetry,
+                      types.TelemetryConfig)
+    assert types.RunConfig(telemetry=False).telemetry is None
+    tcfg = types.RunConfig(telemetry={"sink": "table"}).telemetry
+    assert isinstance(tcfg, types.TelemetryConfig) and tcfg.sink == "table"
+    assert dataclasses.asdict(tcfg) == dataclasses.asdict(
+        ref_types.RunConfig(telemetry={"sink": "table"}).telemetry)
+    with pytest.raises(ValueError, match="unknown telemetry sink"):
+        types.RunConfig(telemetry={"sink": "carrier_pigeon"})
     assert isinstance(types.RunConfig(client_sim={"dropout": 0.2}).client_sim,
                       types.ClientSimConfig)
 
