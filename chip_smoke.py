@@ -139,7 +139,22 @@ Phases, each fatal on failure:
    ms of the kernels launched inside each span, device busy time, idle
    share, the five kernels with the most time); and phase 5's master
    through ``save_pytree`` and ``restore_latest`` onto a CUDA template,
-   bit for bit with one key per leaf.
+   bit for bit with one key per leaf;
+13. the LM supernet NAS path: (a) the qwen1.5-0.5b, mamba2-780m and
+   granite-moe-1b-a400m supernets at full width, seeded random weights
+   on the card, 4 requests of 256 tokens, ``forward(..., choice_key=)``
+   on the kernel route (launch counts zeroed before and read after: one
+   K3 or K4 call per layer that is not an identity, three K5 per MoE
+   layer on the full or lite branch and none on the bottleneck) against
+   the torch route within LOGIT_TOL, on the all-1, all-2, all-3, all-0
+   and mixed keys in bf16 and on the mixed key in float32; (b) the
+   qwen1.5-0.5b supernet's search (1,080,574,976 parameters, bf16; 4
+   ``make_lm_stream`` clients, population 4, 2 generations) on the
+   ``loop`` backend with K1, its launches asserted, one generation-1
+   ``train_fill`` within one bf16 step of the torch route, and K1 timed
+   at that master; (c) the same search at smoke size in float32 against
+   the CPU (keys and CommStats equal, masters within 1e-4), and both
+   examples at their default sizes.
 
 Prints the traced rounds as one JSON line, the kernels as one JSON line,
 then the ``nvidia-smi`` line, then ``{"ok": true, "device": {...}}`` as
@@ -165,12 +180,13 @@ import torch  # noqa: E402
 
 from repro_torch.ckpt import restore_latest, save_pytree  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
-from repro_torch.core import cnn_supernet_api  # noqa: E402
-from repro_torch.data import make_classification, make_clients, \
-    partition_iid  # noqa: E402
+from repro_torch.core import cnn_supernet_api, lm_supernet_api  # noqa: E402
+from repro_torch.data import ClientDataset, make_classification, \
+    make_clients, make_lm_stream, partition_iid  # noqa: E402
 from repro_torch.comm import make_codec  # noqa: E402
 from repro_torch.engine import FedAvgBaseline, FedEngine, LoopBackend, \
-    OfflineNas, RunConfig, VmapBackend  # noqa: E402
+    OfflineNas, RunConfig, VmapBackend, backends  # noqa: E402
+from repro_torch.examples import federated_nas_cifar, quickstart  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
 from repro_torch.kernels import expert_gemm as egemm  # noqa: E402
 from repro_torch.kernels import fill_aggregate as kfa  # noqa: E402
@@ -491,7 +507,8 @@ def time_fill_aggregate(card: str) -> tuple:
     """K1 out of place and in place at the main path's shape, each beside
     the same bound (the same bytes: in place, prev is read once and
     written once), its plain version and the nearest PyTorch expression
-    (lerp + matvec; in place with ``out=prev``).  Out of place is timed
+    (lerp + matvec; in place with ``out=prev``, as the (1, P) product
+    ``mm`` writes).  Out of place is timed
     before and after in place, and both are logged."""
     m, p = MAIN_M, MAIN_P
     cl, mk, w, prev = fill_inputs(m, p, seed=99)
@@ -514,8 +531,9 @@ def time_fill_aggregate(card: str) -> tuple:
                                                    donate_prev=True), 10),
         "plain_ms": device_ms(lambda: ref.fill_aggregate_(cl, mk, w, prev),
                               5),
-        "library_ms": device_ms(lambda: torch.matmul(
-            w, torch.lerp(prev.expand_as(cl), cl, mk), out=prev), 5),
+        "library_ms": device_ms(lambda: torch.mm(
+            w[None], torch.lerp(prev.expand_as(cl), cl, mk),
+            out=prev.view(1, -1)), 5),
         **bound(nbytes, flops, FP32_FLOPS),
     }
     inplace_call_ms = median_ms(
@@ -1761,6 +1779,319 @@ def check_replay_smoke() -> None:
             raise AssertionError(f"{arch} smoke: prefill vs replay {diff}")
 
 
+
+# ---------------------------------------------------------------------------
+# phase 13: the LM supernet NAS path
+# ---------------------------------------------------------------------------
+
+SUPERNET_TOKENS = 256          # per request, 4 requests (REQUESTS)
+# the full-width LM search: 4 clients of make_lm_stream (8 train and 4
+# test sequences of 256 tokens, batch 4), population 4, 2 generations.
+# K1's route stacks (m, P) float32 client and mask matrices: 34.6 GB at
+# m = 4 and P = 1.08 B beside the master, so 4 clients a group at most
+LM_ARCH = "qwen1.5-0.5b"
+LM_CLIENTS, LM_TRAIN, LM_TEST, LM_SEQ, LM_BATCH = 4, 8, 4, 256, 4
+LM_RUN = dict(population=4, generations=2, backend="loop", lr0=0.01,
+              aggregate_backend="kernel")
+LM_PLAIN_CHUNKS = 8    # K1's plain version over column chunks at the LM master
+
+
+def supernet_keys(num_layers: int) -> dict:
+    """The keys phase 13 runs every supernet on: each branch on every
+    layer, and one key that cycles through the four."""
+    return {"all 1": np.ones(num_layers, int),
+            "all 2": np.full(num_layers, 2),
+            "all 3": np.full(num_layers, 3),
+            "all 0": np.zeros(num_layers, int),
+            "mixed": np.arange(num_layers) % 4}
+
+
+def supernet_launches(per_layer: dict, key) -> dict:
+    """Kernel launches of one kernel-route forward of a supernet on
+    ``key``: ``per_layer`` for each layer that is not an identity,
+    except the MoE's K5 on the bottleneck branch (2), which runs three
+    einsums on either route, as the JAX package's."""
+    out: dict = {}
+    for b in np.asarray(key).tolist():
+        for name, n in per_layer.items():
+            if b and not (name == "expert_gemm" and b == 2):
+                out[name] = out.get(name, 0) + n
+    return out
+
+
+def supernet_key_routes(cfg, params, toks, name: str, key, per_layer: dict,
+                        arch: str) -> dict:
+    """One supernet key on both routes: ``forward(..., choice_key=)`` on
+    the kernel route (launch counts zeroed just before and read just
+    after: ``supernet_launches``) against the torch route, within
+    LOGIT_TOL of the logits' largest magnitude.  Returns the kernel
+    route's launches."""
+    label = f"{arch} supernet, {cfg.dtype}, key {name}"
+    expected = supernet_launches(per_layer, key)
+    zero_launches()
+    logits_k = tr.forward(params, cfg, toks, choice_key=key)
+    torch.cuda.synchronize()
+    got = expect_launches(f"{label}, kernel route", expected)
+    expect_variants(f"{label}, kernel route", cfg, expected)
+    zero_launches()
+    logits_t = tr.forward(params, cfg, toks, choice_key=key, backend="torch")
+    torch.cuda.synchronize()
+    expect_launches(f"{label}, torch route", {})
+    for nm, lg in (("kernel", logits_k), ("torch", logits_t)):
+        if (lg.shape != (REQUESTS, SUPERNET_TOKENS, cfg.vocab_size)
+                or not torch.isfinite(lg).all()):
+            raise AssertionError(f"{label}, {nm} route: logits "
+                                 f"{tuple(lg.shape)} not finite")
+    scale = float(logits_t.float().abs().max())
+    diff = float((logits_k.float() - logits_t.float()).abs().max())
+    tol = LOGIT_TOL[cfg.torch_dtype]
+    log(f"{label}: kernel vs torch route logits max abs diff {diff!r} "
+        f"({diff / scale!r} of the largest |logit| {scale!r}, limit "
+        f"{tol!r}); kernel launches {got}")
+    if not diff <= tol * scale:
+        raise AssertionError(f"{label}: routes differ by {diff} > {tol} x "
+                             f"{scale}")
+    return {k: v for k, v in got.items() if v}
+
+
+def check_supernet_branches(card: str) -> dict:
+    """(a) Each supernet at full width, seeded random weights on the card,
+    4 requests of 256 tokens: every key of ``supernet_keys`` in bf16, and
+    the mixed key again in float32 (weights from the same seed), where
+    LOGIT_TOL is 1e-3 and a branch mask missing or wrong on one route
+    shows (``supernet_key_routes``).  Returns the bf16 launches by arch
+    and key."""
+    out = {}
+    for arch, (_, _, per_layer) in SERVE.items():
+        out[arch] = {}
+        for dtype in ("bfloat16", "float32"):
+            cfg = get_config(arch).replace(supernet=True, dtype=dtype)
+            gen = torch.Generator(device="cuda").manual_seed(0)
+            params = tr.init_params(gen, cfg)
+            toks = torch.randint(0, cfg.vocab_size,
+                                 (REQUESTS, SUPERNET_TOKENS), generator=gen,
+                                 device="cuda")
+            keys = supernet_keys(cfg.num_layers)
+            if dtype == "float32":
+                keys = {"mixed": keys["mixed"]}
+            else:
+                n_params = sum(v.numel()
+                               for v in tr.flat_params(params).values())
+            for name, key in keys.items():
+                got = supernet_key_routes(cfg, params, toks, name, key,
+                                          per_layer, arch)
+                if dtype == "bfloat16":
+                    out[arch][name] = got
+            del params
+            torch.cuda.empty_cache()
+        log(f"{arch} supernet: {n_params} parameters ({cfg.num_layers} "
+            f"layers x 3 branches), bf16 launches by key {out[arch]} on "
+            f"{card}")
+    return out
+
+
+def lm_clients(cfg, n_clients: int, train: int, test: int, seq: int,
+               batch: int) -> list:
+    """``n_clients`` clients of ``make_lm_stream`` sequences, ``train``
+    and ``test`` of ``seq`` tokens each, batch ``batch``."""
+    per = train + test
+    x, y = make_lm_stream(0, n_clients * per, seq, cfg.vocab_size)
+    return [ClientDataset(i, x[i * per:(i + 1) * per],
+                          y[i * per:(i + 1) * per], batch=batch,
+                          test_batch=batch)
+            for i in range(n_clients)]
+
+
+def ulp_bf16(x: float) -> float:
+    """One bfloat16 step (8 significant bits) at magnitude ``x``."""
+    return 2.0 ** (math.floor(math.log2(x)) - 7) if x > 0 else 0.0
+
+
+class FirstFillAgainstTorchRoute:
+    """While active, the loop backend's first ``fill_aggregate`` (a
+    generation-1 ``train_fill``) also runs the torch route on the same
+    uploads, before the run's own kernel-route call, and holds the two
+    masters leaf by leaf within one bfloat16 step of the leaf's largest
+    magnitude (both round float32 sums to bf16 once; the sums' order
+    differs).  The torch route launches no kernel, so the run's counts
+    are its own."""
+
+    def __init__(self, label: str):
+        self.label = label
+        self.done = False
+        self._orig = backends.fill_aggregate
+
+    def __enter__(self):
+        def spy(master, uploads, backend):
+            if self.done:
+                return self._orig(master, uploads, backend=backend)
+            self.done = True
+            plain = self._orig(master, uploads, backend="torch")
+            out = self._orig(master, uploads, backend=backend)
+            worst, n_diff, n = 0.0, 0, 0
+            for k, t in plain.items():
+                top = float(t.float().abs().max())
+                d = (out[k].float() - t.float()).abs()
+                gap = float(d.max())
+                if not gap <= ulp_bf16(top):
+                    raise AssertionError(
+                        f"{self.label}: leaf {k} differs from the torch "
+                        f"route by {gap} > one bf16 step {ulp_bf16(top)}")
+                worst = max(worst, gap / top if top else 0.0)
+                n_diff += int((d > 0).sum())
+                n += t.numel()
+            log(f"{self.label}: the first train_fill's master on K1 against "
+                f"the torch route on the same {len(uploads)} uploads: every "
+                f"leaf within one bf16 step of its largest magnitude "
+                f"(worst {worst!r} of it, against 2^-8 = {2 ** -8!r}); "
+                f"{n_diff} of {n} entries differ ({n_diff / n!r})")
+            del plain
+            return out
+        backends.fill_aggregate = spy
+        return self
+
+    def __exit__(self, *exc):
+        backends.fill_aggregate = self._orig
+
+
+def time_fill_aggregate_lm(card: str, p: int) -> dict:
+    """K1 at the LM master (m = 4 uploads, P = ``p``, random inputs: its
+    work does not depend on them): device time beside its bound, the
+    nearest PyTorch expression (lerp + matvec) and the plain version,
+    which at this size runs over LM_PLAIN_CHUNKS column chunks (whole,
+    its temporaries would not fit beside the inputs); the plain chunks
+    also give K1's largest gap."""
+    m = LM_CLIENTS
+    g = torch.Generator(device="cuda").manual_seed(98)
+    cl = torch.randn(m, p, device="cuda", generator=g)
+    mk = torch.randint(0, 2, (m, p), device="cuda", generator=g,
+                       dtype=torch.float32)
+    w = torch.rand(m, device="cuda", generator=g)
+    w = w / w.sum()
+    prev = torch.randn(p, device="cuda", generator=g)
+    nbytes = (2 * m + 1) * p * 4 + m * 4 + p * 4
+    step = -(-p // LM_PLAIN_CHUNKS)
+    cuts = [(a, min(a + step, p)) for a in range(0, p, step)]
+
+    def plain():
+        return [ref.fill_aggregate(cl[:, a:b], mk[:, a:b], w, prev[a:b])
+                for a, b in cuts]
+
+    out = ops.fill_aggregate(cl, mk, w, prev)
+    err = max(float((out[a:b] - part).abs().max())
+              for (a, b), part in zip(cuts, plain()))
+    del out
+    res = {
+        "ms": device_ms(lambda: ops.fill_aggregate(cl, mk, w, prev), 3,
+                        rounds=3),
+        "plain_ms": device_ms(plain, 1, rounds=3),
+        "library_ms": device_ms(
+            lambda: w @ torch.lerp(prev.expand_as(cl), cl, mk), 1, rounds=3),
+        **bound(nbytes, 6 * m * p, FP32_FLOPS),
+        "max_abs_err": err, "m": m, "P": p,
+    }
+    log(f"timing fill_aggregate at the LM master (m={m}, P={p}) on {card}: "
+        f"kernel {res['ms']!r} ms, bound {res['bound_ms']!r} ms "
+        f"({res['bound_by']}, {nbytes} B), plain ({len(cuts)} column "
+        f"chunks) {res['plain_ms']!r} ms, library {res['library_ms']!r} ms;"
+        f" max |kernel - plain| {err!r}")
+    if not err <= TOL:
+        raise AssertionError(f"fill_aggregate at the LM master: {err} > {TOL}")
+    del cl, mk, w, prev
+    torch.cuda.empty_cache()
+    return res
+
+
+def check_lm_search(card: str) -> tuple:
+    """(b) Real-time NAS on the qwen1.5-0.5b supernet at full width (bf16,
+    1,080,574,976 parameters by the JAX package's count) on the loop
+    backend with Algorithm 3 on K1: launch counts zeroed just before and
+    read just after (3 K1 launches, nothing else), ``round_s`` per
+    generation and peak memory logged, the first train_fill held to the
+    torch route (``FirstFillAgainstTorchRoute``).  Returns (K1's launches,
+    the master's flattened length)."""
+    cfg = get_config(LM_ARCH).replace(supernet=True)
+    api = lm_supernet_api(cfg)
+    if api.master_params() != 1_080_574_976:
+        raise AssertionError(f"{LM_ARCH} supernet: {api.master_params()}")
+    clients = lm_clients(cfg, LM_CLIENTS, LM_TRAIN, LM_TEST, LM_SEQ,
+                         LM_BATCH)
+    n_fill = LM_RUN["generations"] + 1
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    label = f"{LM_ARCH} supernet search"
+    t0 = time.perf_counter()
+    eng = FedEngine(api, clients, RunConfig(device="cuda", **LM_RUN))
+    with FirstFillAgainstTorchRoute(label) as spy:
+        zero_launches()
+        result = eng.run()
+        torch.cuda.synchronize()
+        got = expect_launches(label, {"fill_aggregate": n_fill})
+    if not spy.done:
+        raise AssertionError(f"{label}: no train_fill was checked")
+    check_run(result, label)
+    master = result.extras["final_master"]
+    p = sum(v.numel() for v in master.values())
+    for r in result.reports:
+        log(f"{label} generation {r.gen}: round_s {r.round_s!r}, best_err "
+            f"{r.best_err!r} (wrong tokens per sequence), parents "
+            f"{[k.tolist() for k in r.parent_keys]}")
+    log(f"{label}: {len(master)} leaves, {p} parameters flattened (the JAX "
+        f"package's count {api.master_params()} leaves out the QKV biases); "
+        f"CommStats {dataclasses.asdict(result.stats)}; peak device memory "
+        f"{torch.cuda.max_memory_allocated()} B; {time.perf_counter() - t0!r}"
+        f" s with the set-up on {card}")
+    del eng, result, master
+    torch.cuda.empty_cache()
+    return got["fill_aggregate"], p
+
+
+def check_lm_search_smoke() -> None:
+    """(c) The same search at smoke size (qwen1.5-0.5b's smoke config
+    with the supernet, float32) on the card, on the loop and the fused
+    vmap backend (3 K1 launches each, in place on vmap), against the
+    loop run on the CPU: keys and CommStats equal, masters within
+    MASTER_TOL."""
+    cfg = get_config(LM_ARCH, smoke=True).replace(supernet=True)
+    api = lm_supernet_api(cfg)
+    clients = lm_clients(cfg, 4, 16, 8, 32, 8)
+    n_fill = LM_RUN["generations"] + 1
+    cpu = FedEngine(api, clients, RunConfig(device="cpu", **LM_RUN)).run()
+    for backend, in_place in (("loop", 0), ("vmap", n_fill)):
+        label = f"LM supernet search, smoke size, {backend}"
+        zero_launches()
+        gpu = FedEngine(api, clients, RunConfig(**dict(
+            LM_RUN, device="cuda", backend=backend))).run()
+        torch.cuda.synchronize()
+        expect_launches(label, {"fill_aggregate": n_fill})
+        expect_fill_variants(label, in_place, n_fill - in_place)
+        check_run(gpu, label)
+        same_trajectory(gpu, cpu, f"{label}, card vs the CPU's loop",
+                        MASTER_TOL)
+        gap = max(float(np.abs(a.objs - b.objs).max())
+                  for a, b in zip(gpu.reports, cpu.reports))
+        log(f"{label}: objectives card vs CPU max abs diff {gap!r}")
+
+
+def check_examples(card: str) -> None:
+    """(c) Both examples on the card at their default sizes, launch counts
+    zeroed just before and read just after each: quickstart's fused
+    ``vmap`` run on K1 in place (3 launches), federated_nas_cifar's
+    search on the loop backend (one K1 launch a train_fill: 6 in 5
+    generations; the baselines aggregate with FedAvg)."""
+    for label, run, n_fill in (
+            ("quickstart", lambda tmp: quickstart.main([]), 3),
+            ("federated_nas_cifar",
+             lambda tmp: federated_nas_cifar.main(["--out", tmp]), 6)):
+        with tempfile.TemporaryDirectory() as tmp:
+            zero_launches()
+            t0 = time.perf_counter()
+            run(tmp)
+            torch.cuda.synchronize()
+            expect_launches(f"example {label}", {"fill_aggregate": n_fill})
+            log(f"example {label}: {time.perf_counter() - t0!r} s on {card}")
+
+
 def main() -> int:
     # 1. device
     if not torch.cuda.is_available():
@@ -1946,6 +2277,17 @@ def main() -> int:
     log(f"obs.traced adds {splits['traced_call_us']!r} µs to a full-width "
         f"client_update call on {card}")
     del refs
+    torch.cuda.empty_cache()
+
+    # 13. the LM supernet NAS path: per-branch forwards at full width, the
+    # full-width search on K1 and K1 at its master, the smoke-size search
+    # on the card against the CPU, the examples
+    with torch.inference_mode():
+        supernet_launches_by_key = check_supernet_branches(card)
+    lm_launches, lm_p = check_lm_search(card)
+    lm_timing = time_fill_aggregate_lm(card, lm_p)
+    check_lm_search_smoke()
+    check_examples(card)
 
     kernels = [{
         "name": "fill_aggregate", "route": "cuda",
@@ -1961,6 +2303,13 @@ def main() -> int:
         "replaces": "src/repro/kernels/fill_aggregate.py:61",
         "launches": in_place_launches, "max_abs_err": inplace_err,
         **inplace_timing,
+    }, {
+        # K1 at the LM supernet's master (phase 13): 4 uploads of the
+        # qwen1.5-0.5b supernet's flattened parameters
+        "name": "fill_aggregate_lm_master", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/fill_aggregate.cu",
+        "replaces": "src/repro/kernels/fill_aggregate.py:29",
+        "launches": lm_launches, **lm_timing,
     }, {
         "name": "quantize_int8", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/quantize_int8.cu",
@@ -1989,6 +2338,10 @@ def main() -> int:
         "replaces": "src/repro/kernels/flash_attention.py:86",
         "launches": serve_launches["qwen1.5-0.5b"]["flash_attention"],
         "max_abs_err": flash_err, **flash_timing, **tc_resources,
+        "supernet_launches": {a: {k: n.get("flash_attention", 0)
+                                  for k, n in by_key.items()}
+                              for a, by_key in
+                              supernet_launches_by_key.items()},
     }, {
         "name": "ssd_scan", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
@@ -1996,12 +2349,18 @@ def main() -> int:
         "launches": serve_launches["mamba2-780m"]["ssd_scan"],
         "max_abs_err": ssd_err, **ssd_timing,
         "stage_resources": ssd_stage_resources,
+        "supernet_launches": {k: n.get("ssd_scan", 0) for k, n in
+                              supernet_launches_by_key["mamba2-780m"]
+                              .items()},
     }, {
         "name": "expert_gemm", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/expert_gemm.cu",
         "replaces": "src/repro/kernels/expert_gemm.py:38",
         "launches": serve_launches["granite-moe-1b-a400m"]["expert_gemm"],
         "max_abs_err": gemm_err, **gemm_timing, **gemm_resources,
+        "supernet_launches": {k: n.get("expert_gemm", 0) for k, n in
+                              supernet_launches_by_key[
+                                  "granite-moe-1b-a400m"].items()},
     }]
     if any(not math.isfinite(k[f]) for k in kernels
            for f in ("ms", "plain_ms", "bound_ms")):

@@ -2,6 +2,7 @@
 
 Mirrors the JAX package ``repro`` module for module (``configs``,
 ``core``, ``data``, ``engine``, ``models``, ``optim``, ``kernels``) and
-imports nothing of it.  ``convert`` carries CNN weights between the two
-packages' layouts.
+imports nothing of it.  ``convert`` carries CNN and LM weights between
+the two packages' layouts; ``examples`` holds the example drivers
+(``python -m repro_torch.examples.quickstart``).
 """

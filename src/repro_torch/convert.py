@@ -18,8 +18,13 @@ of ``L`` per-layer dicts with the same names and the same per-layer
 layouts (dense ``w`` is ``(d_in, d_out)`` in both; a MoE layer's
 ``moe.router.w`` is ``(d, E)``, ``moe.experts.wi``/``wg`` ``(E, d, F)``
 and ``wo`` ``(E, F, d)``, beside ``moe.shared`` where the config has a
-shared expert).  Leaves are matched by path.  bfloat16 leaves cross as float32 numpy arrays holding the same
-values (numpy has no bfloat16); both directions are exact.
+shared expert).  Leaves are matched by path.  A supernet's layer leaves
+are ``(L, 3, ...)`` in the JAX package (the weighted branches 1-3 on the
+second axis) and ``params["layers"][l][b]`` here, a list of 3 branch
+dicts per layer; ``models.transformer.flat_params`` then names them
+``layers.{l}.{b}.<path>`` in the LM supernet's flat master.  bfloat16
+leaves cross as float32 numpy arrays holding the same values (numpy has
+no bfloat16); both directions are exact.
 """
 from __future__ import annotations
 
@@ -30,6 +35,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.cnn import BRANCH_NAMES
+from repro_torch.models.transformer import N_BRANCHES
 
 _HWIO_TO_OIHW = (3, 2, 0, 1)
 _OIHW_TO_HWIO = (2, 3, 1, 0)
@@ -81,10 +87,10 @@ def params_to_reference(params: Dict[str, torch.Tensor]):
 
 
 def _lm_family_check(cfg: ModelConfig) -> None:
-    if cfg.family not in ("dense", "moe", "ssm") or cfg.supernet:
+    if cfg.family not in ("dense", "moe", "ssm"):
         raise NotImplementedError(
-            f"{cfg.name}: only the dense, moe and ssm families without the "
-            "supernet are ported (ROADMAP queue 1)")
+            f"{cfg.name}: only the dense, moe and ssm families are ported "
+            "(ROADMAP queue 1)")
 
 
 def _leaf_to_port(a, dtype: torch.dtype) -> torch.Tensor:
@@ -102,9 +108,10 @@ def _tree_to_port(tree, dtype_of):
 
 def lm_params_from_reference(cfg: ModelConfig, tree) -> Dict:
     """The JAX package's LM parameter tree (leaves as numpy arrays,
-    per-layer leaves stacked on ``L``) -> the port's nested dicts on the
-    CPU, ``layers`` a list of ``L`` dicts.  float32 leaves stay float32;
-    the others take the config's dtype."""
+    per-layer leaves stacked on ``L``, a supernet's on ``(L, 3)``) -> the
+    port's nested dicts on the CPU, ``layers`` a list of ``L`` dicts (a
+    supernet's: of ``L`` lists of 3 branch dicts).  float32 leaves stay
+    float32; the others take the config's dtype."""
     _lm_family_check(cfg)
 
     def dtype_of(a):
@@ -114,24 +121,27 @@ def lm_params_from_reference(cfg: ModelConfig, tree) -> Dict:
     out = {k: _tree_to_port(v, dtype_of) for k, v in tree.items()
            if k != "layers"}
 
-    def unstack(node, i):
+    def unstack(node, idx):
         if isinstance(node, dict):
-            return {k: unstack(v, i) for k, v in node.items()}
+            return {k: unstack(v, idx) for k, v in node.items()}
         a = np.asarray(node)
-        if a.shape[0] != cfg.num_layers:
-            raise ValueError(f"layer leaf of shape {a.shape}: expected a "
-                             f"leading axis of {cfg.num_layers}")
-        return _leaf_to_port(a[i], dtype_of(a))
+        lead = (cfg.num_layers, N_BRANCHES)[:len(idx)]
+        if a.shape[:len(idx)] != lead:
+            raise ValueError(f"layer leaf of shape {a.shape}: expected "
+                             f"leading axes {lead}")
+        return _leaf_to_port(a[idx], dtype_of(a))
 
-    out["layers"] = [unstack(tree["layers"], i)
-                     for i in range(cfg.num_layers)]
+    lt = tree["layers"]
+    out["layers"] = [
+        [unstack(lt, (l, b)) for b in range(N_BRANCHES)] if cfg.supernet
+        else unstack(lt, (l,)) for l in range(cfg.num_layers)]
     return out
 
 
 def lm_params_to_reference(cfg: ModelConfig, params: Dict):
     """Inverse of ``lm_params_from_reference``: numpy arrays in the JAX
-    package's nesting, per-layer leaves stacked on ``L`` (bfloat16
-    leaves as float32 arrays of the same values)."""
+    package's nesting, per-layer leaves stacked on ``L`` (a supernet's on
+    ``(L, 3)``; bfloat16 leaves as float32 arrays of the same values)."""
     _lm_family_check(cfg)
 
     def leaf(t: torch.Tensor) -> np.ndarray:
@@ -154,7 +164,13 @@ def lm_params_to_reference(cfg: ModelConfig, params: Dict):
     def stack(nodes):
         if isinstance(nodes[0], dict):
             return {k: stack([n[k] for n in nodes]) for k in nodes[0]}
+        if isinstance(nodes[0], np.ndarray):
+            return np.stack(nodes)
         return np.stack([leaf(n) for n in nodes])
 
-    out["layers"] = stack(layers)
+    if cfg.supernet:
+        # (L, 3, ...): stack each layer's branches, then the layers
+        out["layers"] = stack([stack(list(branches)) for branches in layers])
+    else:
+        out["layers"] = stack(layers)
     return out

@@ -49,17 +49,30 @@ def cnn_trained_mask(params: Params, key: np.ndarray) -> Params:
     return mask
 
 
+def supernet_trained_mask(params: Params, key: np.ndarray) -> Params:
+    """Name -> 0-d float32 mask for the transformer supernets' flat master
+    (``models.transformer.flat_params`` names): a leaf of branch b of
+    layer l (``layers.{l}.{b}.…``) is trained iff ``key[l] == b + 1``
+    (0 = identity trains nothing); everything outside ``layers`` is
+    trained by every client.  Broadcast to its leaf, it is the JAX
+    package's ``(L, 3, 1, …)`` mask."""
+    dev = next(iter(params.values())).device
+    one = torch.ones((), device=dev)
+    zero = torch.zeros((), device=dev)
+    key = np.asarray(key)
+    mask = {}
+    for k in params:
+        if k.startswith("layers."):
+            _, l, b = k.split(".", 3)[:3]
+            mask[k] = one if int(key[int(l)]) == int(b) + 1 else zero
+        else:
+            mask[k] = one
+    return mask
+
+
 def _flat_f32(leaves: Sequence[torch.Tensor]) -> torch.Tensor:
     """Flatten leaves into one (P,) float32 vector (kernel layout)."""
     return torch.cat([x.reshape(-1).float() for x in leaves])
-
-
-def _flat_mask_f32(mask_leaves: Sequence[torch.Tensor],
-                   leaves: Sequence[torch.Tensor]) -> torch.Tensor:
-    """Flatten scalar mask leaves against their parameter leaves into one
-    (P,) float32 vector."""
-    return torch.cat([m.float().reshape(1).expand(x.numel())
-                      for m, x in zip(mask_leaves, leaves)])
 
 
 def _unflatten_like(flat: torch.Tensor, ref: Params) -> Params:
@@ -88,12 +101,19 @@ def fill_aggregate(prev_master: Params,
         from repro_torch.kernels import ops as kops
         names = list(prev_master)
         flat_prev = _flat_f32([prev_master[k] for k in names])
-        cl = torch.stack([_flat_f32([cp[k] for k in names])
-                          for cp, _, _ in uploads])
-        mk = torch.stack([_flat_mask_f32([cm[k] for k in names],
-                                         [cp[k] for k in names])
-                          for cp, cm, _ in uploads])
+        # each upload flattened straight into its row of the (m, P)
+        # matrices: at a 1.08 B-parameter master a stack of m flat rows
+        # would hold every matrix twice
+        shape = (len(uploads), flat_prev.numel())
+        cl = torch.empty(shape, dtype=torch.float32, device=dev)
+        mk = torch.empty(shape, dtype=torch.float32, device=dev)
+        for i, (cp, cm, _) in enumerate(uploads):
+            leaves = [cp[k] for k in names]
+            torch.cat([x.reshape(-1) for x in leaves], out=cl[i])
+            torch.cat([cm[k].float().reshape(1).expand(x.numel())
+                       for k, x in zip(names, leaves)], out=mk[i])
         flat = kops.fill_aggregate(cl, mk, weights, flat_prev)
+        del cl, mk
         return _unflatten_like(flat, prev_master)
     if backend != "torch":
         raise ValueError(f"unknown aggregate backend {backend!r}; "

@@ -7,7 +7,7 @@ from repro_torch.data.pipeline import (
     make_clients, make_fleet, shape_buckets,
 )
 from repro_torch.data.synthetic import (
-    VirtualClassification, make_classification,
+    VirtualClassification, make_classification, make_lm_stream,
 )
 
 __all__ = [
@@ -15,5 +15,5 @@ __all__ = [
     "partition_dirichlet", "partition_iid", "partition_label",
     "ArraySource", "ClientBatch", "ClientDataset", "ClientFleet", "batched",
     "make_clients", "make_fleet", "shape_buckets",
-    "VirtualClassification", "make_classification",
+    "VirtualClassification", "make_classification", "make_lm_stream",
 ]

@@ -1,9 +1,11 @@
-"""Synthetic-but-learnable image classification data.
+"""Synthetic-but-learnable data.
 
 A class-conditional image mixture with CIFAR-10's tensor shapes
 (32x32x3, 10 classes): each class owns a smooth random prototype field;
 samples are prototype + noise.  Difficulty is set by the signal/noise
-ratio.  The draws are the JAX package's, number for number.
+ratio.  And a token stream for the language-model supernets: a fixed
+random successor table, followed except for a share of random tokens.
+The draws are the JAX package's, number for number.
 """
 from __future__ import annotations
 
@@ -73,3 +75,20 @@ class VirtualClassification:
             x[row] = (self.protos[yi] * self.signal
                       + r.normal(size=shape) * self.noise)
         return x, y
+
+
+def make_lm_stream(seed: int, n_seqs: int, seq_len: int, vocab: int,
+                   order_noise: float = 0.1) -> Tuple[np.ndarray, np.ndarray]:
+    """``n_seqs`` sequences of ``seq_len`` next-token pairs (x, y), int32:
+    each token follows a fixed random successor table, except that a
+    share ``order_noise`` of them is drawn at random."""
+    rng = np.random.default_rng(seed)
+    nxt = rng.integers(0, vocab, size=vocab)          # deterministic successor
+    toks = np.empty((n_seqs, seq_len + 1), np.int64)
+    toks[:, 0] = rng.integers(0, vocab, size=n_seqs)
+    for t in range(seq_len):
+        follow = nxt[toks[:, t]]
+        rand = rng.integers(0, vocab, size=n_seqs)
+        use_rand = rng.random(n_seqs) < order_noise
+        toks[:, t + 1] = np.where(use_rand, rand, follow)
+    return toks[:, :-1].astype(np.int32), toks[:, 1:].astype(np.int32)

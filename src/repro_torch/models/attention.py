@@ -1,8 +1,9 @@
 """Grouped-query self-attention of the dense language models.
 
 Supports GQA (num_kv_heads <= num_heads), RoPE 1d / 2d / none, optional
-QKV bias, causal or sliding-window masks, and single-token decode against
-a (ring-buffered) KV cache, with the JAX package's names and layouts.
+QKV bias, causal or sliding-window masks, single-token decode against a
+(ring-buffered) KV cache, and a per-head mask for the supernet's lite
+branch, with the JAX package's names and layouts.
 
 The softmax(QKᵀ)V core of a full sequence takes one of two routes:
 ``backend="kernel"`` (the default) is ``kernels.ops.flash_attention``
@@ -40,10 +41,11 @@ def _split_heads(x: torch.Tensor, n: int) -> torch.Tensor:
     return x.reshape(b, s, n, -1)
 
 
-def _attend(q, k, v, mask):
+def _attend(q, k, v, mask, head_mask=None):
     """q: (B, S, H, D); k, v: (B, T, Kh, D); mask: (B|1, S, T) bool ->
     (B, S, H*D) in v's dtype.  Scores, softmax and the weighted sum in
-    float32; K/V repeated to the H query heads."""
+    float32; K/V repeated to the H query heads; ``head_mask`` (H,)
+    optionally zeroes heads' outputs (the supernet's lite branch)."""
     b, s, h, d = q.shape
     kh = k.shape[2]
     if kh != h:
@@ -55,6 +57,8 @@ def _attend(q, k, v, mask):
                          torch.full_like(scores, NEG_INF))
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bhst,bthd->bshd", probs, v.float())
+    if head_mask is not None:
+        out = out * head_mask.to(out.dtype)[None, None, :, None]
     return out.reshape(b, s, h * d).to(v.dtype)
 
 
@@ -71,8 +75,10 @@ def causal_mask(s: int, window: int = 0, device=None) -> torch.Tensor:
 
 def self_attention(p, x, positions, *, num_heads, num_kv_heads, head_dim,
                    rope_style="1d", theta=10000.0, window=0,
-                   backend="kernel"):
-    """Full-sequence causal self attention (prefill).  x: (B, S, d)."""
+                   head_mask=None, backend="kernel"):
+    """Full-sequence causal self attention (prefill).  x: (B, S, d).
+    ``head_mask`` (H,) zeroes heads' outputs after the softmax(QKᵀ)V core,
+    outside the kernel on the kernel route, as the JAX package does."""
     kops.check_backend(backend)
     q = _split_heads(dense(p["wq"], x), num_heads)
     k = _split_heads(dense(p["wk"], x), num_kv_heads)
@@ -82,10 +88,12 @@ def self_attention(p, x, positions, *, num_heads, num_kv_heads, head_dim,
     b, s = x.shape[:2]
     if backend == "kernel":
         out = kops.flash_attention(q, k, v, causal=True, window=window)
+        if head_mask is not None:
+            out = out * head_mask.to(out.dtype)[None, None, :, None]
         out = out.reshape(b, s, num_heads * head_dim)
     else:
         out = _attend(q, k, v, causal_mask(s, window=window,
-                                           device=x.device))
+                                           device=x.device), head_mask)
     return dense(p["wo"], out)
 
 

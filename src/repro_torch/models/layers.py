@@ -10,7 +10,7 @@ on interleaved pairs in float32, GELU in its tanh approximation.
 from __future__ import annotations
 
 import math
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 import torch.nn.functional as F
@@ -103,14 +103,18 @@ def mlp_init(gen, d_model, d_ff, dtype, gated=True) -> Dict[str, Params]:
     return p
 
 
-def mlp(p, x: torch.Tensor) -> torch.Tensor:
+def mlp(p, x: torch.Tensor, ff_mask: Optional[torch.Tensor] = None
+        ) -> torch.Tensor:
     """SwiGLU if ``wg`` is present, else GELU (tanh approximation, as
-    ``jax.nn.gelu``)."""
+    ``jax.nn.gelu``).  ``ff_mask`` (d_ff,) optionally zeroes hidden units
+    (the supernet's bottleneck branch)."""
     h = dense(p["wi"], x)
     if "wg" in p:
         h = F.silu(dense(p["wg"], x)) * h
     else:
         h = F.gelu(h, approximate="tanh")
+    if ff_mask is not None:
+        h = h * ff_mask.to(h.dtype)
     return dense(p["wo"], h)
 
 

@@ -10,16 +10,18 @@ equals the JAX package's exactly (the same stable order, the same
 slots).  ``backend="kernel"`` runs the expert FFN's three products on
 the grouped GEMM kernel K5 (``kernels.ops.expert_ffn``; its plain
 version on the CPU), ``"torch"`` on ``torch.einsum``; routing is the
-same code on both.
+same code on both.  The supernet's bottleneck branch (``ff_mask``)
+narrows the expert hidden dim by a mask between the products; there the
+JAX package runs its three einsums whatever the backend, and so does the
+port: that branch launches no K5 on either route.
 
-Not ported here: the supernet's ``ff_mask`` bottleneck (ROADMAP queue
-1: the LM supernet) and the ``shard_map`` expert-parallel path (queue
+Not ported here: the ``shard_map`` expert-parallel path (ROADMAP queue
 1: mesh and launch); on one card there is no mesh.
 """
 from __future__ import annotations
 
 import math
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -59,11 +61,16 @@ def capacity(tokens: int, num_experts: int, top_k: int,
     return max(8, -(-c // 8) * 8)
 
 
-def expert_ffn(experts, x: torch.Tensor) -> torch.Tensor:
-    """Grouped SwiGLU over (E, C, d) slots -> (E, C, d), on einsum."""
+def expert_ffn(experts, x: torch.Tensor,
+               ff_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Grouped SwiGLU over (E, C, d) slots -> (E, C, d), on einsum.
+    ``ff_mask`` (F,) zeroes the hidden units outside it before the down
+    projection (the supernet's bottleneck)."""
     h = torch.einsum("ecd,edf->ecf", x, experts["wi"])
     g = torch.einsum("ecd,edf->ecf", x, experts["wg"])
     h = F.silu(g) * h
+    if ff_mask is not None:
+        h = h * ff_mask.to(h.dtype)
     return torch.einsum("ecf,efd->ecd", h, experts["wo"])
 
 
@@ -95,8 +102,8 @@ def route(p, x2: torch.Tensor, cfg: ModelConfig) -> Dict[str, torch.Tensor]:
         sorted_expert, torch.arange(e, dtype=flat.dtype, device=flat.device))
     rank_sorted = (torch.arange(t * k, device=flat.device)
                    - starts[sorted_expert])
-    rank = torch.empty_like(rank_sorted)
-    rank[order] = rank_sorted
+    # out of place throughout, so that torch.func.vmap can batch it
+    rank = torch.empty_like(rank_sorted).scatter(0, order, rank_sorted)
     slot = torch.where(rank < cap, flat * cap + rank,
                        torch.full_like(rank, e * cap))
     return {"gate": gate, "expert": expert, "aux": aux, "slot": slot,
@@ -112,17 +119,20 @@ def dispatch(x2: torch.Tensor, slot: torch.Tensor, cfg: ModelConfig,
     token = torch.arange(t, device=x2.device).repeat_interleave(k)
     # one row past the slots takes every dropped choice (several writes
     # at once; the row is cut off and never read)
-    slot_token = torch.zeros(e * cap + 1, dtype=torch.long, device=x2.device)
-    slot_used = torch.zeros(e * cap + 1, dtype=x2.dtype, device=x2.device)
-    slot_token[slot] = token
-    slot_used[slot] = 1.0
+    slot_token = torch.zeros(e * cap + 1, dtype=torch.long,
+                             device=x2.device).scatter(0, slot, token)
+    slot_used = torch.zeros(e * cap + 1, dtype=x2.dtype,
+                            device=x2.device).scatter(
+        0, slot, torch.ones(slot.shape, dtype=x2.dtype, device=x2.device))
     expert_in = x2[slot_token[:e * cap]] * slot_used[:e * cap, None]
     return expert_in.reshape(e, cap, d)
 
 
 def moe_apply(p, x: torch.Tensor, cfg: ModelConfig, *,
+              ff_mask: Optional[torch.Tensor] = None,
               backend: str = "kernel") -> Tuple[torch.Tensor, torch.Tensor]:
-    """x: (B, S, d) -> (y (B, S, d) in x's dtype, aux loss (float32))."""
+    """x: (B, S, d) -> (y (B, S, d) in x's dtype, aux loss (float32)).
+    ``ff_mask`` (F,) optionally narrows the expert hidden dim."""
     kops.check_backend(backend)
     b, s, d = x.shape
     e, k = cfg.num_experts, cfg.top_k
@@ -130,8 +140,12 @@ def moe_apply(p, x: torch.Tensor, cfg: ModelConfig, *,
     r = route(p, x2, cfg)
     cap = r["cap"]
     expert_in = dispatch(x2, r["slot"], cfg, cap)
-    ffn = kops.expert_ffn if backend == "kernel" else expert_ffn
-    out = ffn(p["experts"], expert_in).reshape(e * cap, d)
+    if ff_mask is not None:
+        out = expert_ffn(p["experts"], expert_in, ff_mask)
+    else:
+        ffn = kops.expert_ffn if backend == "kernel" else expert_ffn
+        out = ffn(p["experts"], expert_in)
+    out = out.reshape(e * cap, d)
     out = torch.cat([out, torch.zeros((1, d), dtype=out.dtype,
                                       device=out.device)])
     slot_tk = r["slot"].reshape(b * s, k)

@@ -152,8 +152,12 @@ def ssd_chunked_torch(xs, a, bm, cm, initial_state=None):
     return y_diag + y_off, carry
 
 
-def ssm_forward(p, x, cfg, *, backend="kernel"):
-    """Full-sequence Mamba2 block.  x: (B, S, d) -> (B, S, d)."""
+def ssm_forward(p, x, cfg, *, state_mask=None, head_mask=None,
+                backend="kernel"):
+    """Full-sequence Mamba2 block.  x: (B, S, d) -> (B, S, d).
+    ``state_mask`` (N,) multiplies B before the scan and ``head_mask``
+    (H,) the heads' outputs after it (the supernet's branch masks;
+    outside the kernel on the kernel route, as the JAX package)."""
     bsz, s, _ = x.shape
     di, h, pd = cfg.d_inner, cfg.ssm_heads, cfg.ssm_head_dim
     z = dense(p["z_proj"], x)
@@ -162,10 +166,14 @@ def ssm_forward(p, x, cfg, *, backend="kernel"):
     c_mat = _causal_conv(dense(p["c_proj"], x), p["conv_c"])
     dt = dense(p["dt_proj"], x)
     x_in = x_in.reshape(bsz, s, h, pd)
+    if state_mask is not None:
+        b_mat = b_mat * state_mask.to(b_mat.dtype)
     dt = F.softplus(dt.float() + p["dt_bias"])
     a_head = -torch.exp(p["A_log"])
     y, _ = ssd_chunked(x_in, dt, a_head, b_mat, c_mat, backend=backend)
     y = y + x_in.float() * p["D"][None, None, :, None]
+    if head_mask is not None:
+        y = y * head_mask.to(y.dtype)[None, None, :, None]
     y = y.reshape(bsz, s, di).to(x.dtype)
     y = y * F.silu(z)
     y = rmsnorm(p["norm"], y)

@@ -1,18 +1,33 @@
 """Dense, MoE and SSM language-model stacks: init, full-sequence forward,
-and serving (cache init, prefill by replay, single-token decode).
+serving (cache init, prefill by replay, single-token decode), and the
+paper's supernet over them.
 
 Parameters are nested dicts of tensors with the JAX package's names and
 per-layer layouts; where the JAX package stacks every per-layer leaf on a
 leading ``L`` axis and scans over it, the port keeps ``params["layers"]``
 as a list of per-layer dicts and loops over it in Python
 (``convert.lm_params_from_reference`` carries weights across).  Only the
-``dense``, ``moe`` and ``ssm`` families without the supernet are
-ported: the others raise, naming their ROADMAP item.
+``dense``, ``moe`` and ``ssm`` families are ported: the others raise,
+naming their ROADMAP item.
+
+The supernet (``cfg.supernet``) follows the JAX package's choice blocks
+adapted to transformers: per layer, 4 branches
+  0: identity (layer skip)          1: full block
+  2: bottleneck (d_ff masked to /2) 3: lite (half the query heads masked)
+selected by an int choice key on the host.  Where the JAX package stacks
+the 3 weighted branches of a layer on a second axis ``(L, 3, ...)``, the
+port keeps ``params["layers"][l]`` as a list of 3 branch dicts (branch b
++ 1 at index b), and ``forward(..., choice_key=)`` runs the selected one
+of each layer: an identity layer touches no parameter.  Decoding a
+supernet raises, as there is no decode of one in the JAX package either.
+``flat_params`` / ``nested_params`` name every leaf by its dotted path
+(``layers.{l}.{b}.attn.wq.w``), the layout of the LM supernet's master.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
@@ -26,6 +41,8 @@ from repro_torch.models.layers import (
 
 Params = Dict[str, Any]
 
+N_BRANCHES = 3      # weighted branches per supernet layer (0 = identity)
+
 _NOT_PORTED = {
     "hybrid": "ROADMAP queue 1: the hybrid family (zamba2)",
     "vlm": "ROADMAP queue 1: VLM and audio",
@@ -37,15 +54,42 @@ def _layer_kind(cfg: ModelConfig) -> str:
     if cfg.family not in ("dense", "moe", "ssm", *_NOT_PORTED):
         raise ValueError(f"{cfg.name}: not a language model "
                          f"(family {cfg.family!r})")
-    if cfg.supernet:
-        raise NotImplementedError(
-            f"{cfg.name}: the LM supernet is not yet ported to repro_torch "
-            "(ROADMAP queue 1: the LM supernet NAS path)")
     if cfg.family in _NOT_PORTED:
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} is not yet ported to "
             f"repro_torch ({_NOT_PORTED[cfg.family]})")
     return cfg.family
+
+
+def _serving_kind(cfg: ModelConfig) -> str:
+    kind = _layer_kind(cfg)
+    if cfg.supernet:
+        raise NotImplementedError(
+            f"{cfg.name}: a supernet is not decoded (the LM supernet NAS "
+            "path evaluates full sequences only, as the JAX package's); "
+            "serve a subnet's weights as a plain model")
+    return kind
+
+
+def branch_masks(cfg: ModelConfig, device=None) -> Dict[str, torch.Tensor]:
+    """The supernet's static branch masks (bool): the first half of the
+    MLP's hidden units (``ff``), of the query heads (``head``), of the
+    experts' hidden units (``moe_ff``), of the SSM state (``state``) and
+    of the SSM heads (``ssm_head``), where the config has them."""
+    def half(n):
+        return torch.arange(n, device=device) < n // 2
+
+    m: Dict[str, torch.Tensor] = {}
+    if cfg.d_ff:
+        m["ff"] = half(cfg.d_ff)
+    if cfg.num_heads:
+        m["head"] = half(cfg.num_heads)
+    if cfg.num_experts:
+        m["moe_ff"] = half(cfg.moe_d_ff or cfg.d_ff)
+    if cfg.ssm_state:
+        m["state"] = half(cfg.ssm_state)
+        m["ssm_head"] = half(cfg.ssm_heads)
+    return m
 
 
 def block_init(gen: torch.Generator, cfg: ModelConfig, kind: str) -> Params:
@@ -64,15 +108,60 @@ def block_init(gen: torch.Generator, cfg: ModelConfig, kind: str) -> Params:
 
 def init_params(gen: torch.Generator, cfg: ModelConfig) -> Params:
     """Random weights from ``gen``, on its device, in the config's dtype
-    (the JAX package's init distributions; not its random bits)."""
+    (the JAX package's init distributions; not its random bits).  A
+    supernet's layer is a list of ``N_BRANCHES`` blocks."""
     kind = _layer_kind(cfg)
+
+    def layer():
+        if cfg.supernet:
+            return [block_init(gen, cfg, kind) for _ in range(N_BRANCHES)]
+        return block_init(gen, cfg, kind)
+
     return {
         "embed": embedding_init(gen, cfg.vocab_size, cfg.d_model,
                                 cfg.torch_dtype),
         "final_ln": rmsnorm_init(cfg.d_model, cfg.torch_dtype, gen.device),
-        "layers": [block_init(gen, cfg, kind)
-                   for _ in range(cfg.num_layers)],
+        "layers": [layer() for _ in range(cfg.num_layers)],
     }
+
+
+def flat_params(params: Params) -> Dict[str, torch.Tensor]:
+    """Nested params -> one ordered ``{dotted path: tensor}`` dict (the
+    same tensors, no copies); a list's items are named by their index."""
+    out: Dict[str, torch.Tensor] = {}
+
+    def walk(node, prefix):
+        if isinstance(node, torch.Tensor):
+            out[prefix[:-1]] = node
+            return
+        items = node.items() if isinstance(node, dict) else enumerate(node)
+        for k, v in items:
+            walk(v, f"{prefix}{k}.")
+
+    walk(params, "")
+    return out
+
+
+def nested_params(flat: Dict[str, torch.Tensor]) -> Params:
+    """Inverse of ``flat_params``: the nested dicts and lists (a level
+    whose names are all integers is a list), holding the same tensors."""
+    root: Dict[str, Any] = {}
+    for name, t in flat.items():
+        *path, leaf = name.split(".")
+        node = root
+        for part in path:
+            node = node.setdefault(part, {})
+        node[leaf] = t
+
+    def listify(node):
+        if not isinstance(node, dict):
+            return node
+        node = {k: listify(v) for k, v in node.items()}
+        if node and all(k.isdigit() for k in node):
+            return [node[str(i)] for i in range(len(node))]
+        return node
+
+    return listify(root)
 
 
 def _attn_kw(cfg: ModelConfig, window: int) -> Dict[str, Any]:
@@ -81,8 +170,35 @@ def _attn_kw(cfg: ModelConfig, window: int) -> Dict[str, Any]:
                 theta=cfg.rope_theta, window=window)
 
 
+def _block_fwd(p_l, h, positions, cfg: ModelConfig, kind: str, window: int,
+               backend: str, branch: int = 1,
+               masks: Optional[Dict[str, torch.Tensor]] = None):
+    """One layer: the full block (branch 1), or the supernet's bottleneck
+    (2: the MLP's / experts' hidden units or the SSM state masked to
+    half) or lite branch (3: half the attention or SSM heads) ->
+    (h, the MoE aux loss or None)."""
+    bottle, lite = branch == 2, branch == 3
+    if kind in ("dense", "moe"):
+        h = h + attn.self_attention(
+            p_l["attn"], rmsnorm(p_l["ln1"], h), positions,
+            head_mask=masks["head"] if lite else None, backend=backend,
+            **_attn_kw(cfg, window))
+        x = rmsnorm(p_l["ln2"], h)
+        if kind == "moe":
+            y, a = moe_mod.moe_apply(
+                p_l["moe"], x, cfg,
+                ff_mask=masks["moe_ff"] if bottle else None, backend=backend)
+            return h + y, a
+        return h + mlp(p_l["mlp"], x,
+                       ff_mask=masks["ff"] if bottle else None), None
+    return h + ssm_mod.ssm_forward(
+        p_l["ssm"], rmsnorm(p_l["ln"], h), cfg,
+        state_mask=masks["state"] if bottle else None,
+        head_mask=masks["ssm_head"] if lite else None, backend=backend), None
+
+
 def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
-            window: int = 0, backend: str = "kernel",
+            choice_key=None, window: int = 0, backend: str = "kernel",
             return_hidden: bool = False, return_aux: bool = False):
     """Full-sequence forward.  tokens: (B, S) integers -> logits
     (B, S, V), or the final hidden states (B, S, d) with
@@ -90,7 +206,10 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
     load-balance loss summed over the layers (float32; 0 for the other
     families), as the JAX package's forward returns it beside its
     optional cache.  ``backend`` routes attention, the SSD scan and the
-    expert FFN."""
+    expert FFN.  A supernet needs ``choice_key``, one host int per layer:
+    layer l runs branch ``choice_key[l]`` (0 skips it), from
+    ``params["layers"][l][choice_key[l] - 1]``; only the selected
+    branches are read (the others may be None)."""
     kind = _layer_kind(cfg)
     kops.check_backend(backend)
     b, s = tokens.shape
@@ -98,20 +217,29 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
     positions = torch.arange(s, dtype=torch.int32,
                              device=h.device).expand(b, s)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
-    for p_l in params["layers"]:
-        if kind in ("dense", "moe"):
-            h = h + attn.self_attention(p_l["attn"], rmsnorm(p_l["ln1"], h),
-                                        positions, backend=backend,
-                                        **_attn_kw(cfg, window))
-            if kind == "moe":
-                y, a = moe_mod.moe_apply(p_l["moe"], rmsnorm(p_l["ln2"], h),
-                                         cfg, backend=backend)
-                h, aux = h + y, aux + a
-            else:
-                h = h + mlp(p_l["mlp"], rmsnorm(p_l["ln2"], h))
-        else:
-            h = h + ssm_mod.ssm_forward(p_l["ssm"], rmsnorm(p_l["ln"], h),
-                                        cfg, backend=backend)
+    if cfg.supernet:
+        if choice_key is None:
+            raise ValueError(f"{cfg.name}: a supernet's forward needs a "
+                             "choice_key")
+        key = np.asarray(choice_key).reshape(-1).tolist()
+        if len(key) != cfg.num_layers or not all(0 <= k <= N_BRANCHES
+                                                 for k in key):
+            raise ValueError(f"{cfg.name}: choice key {key}: need "
+                             f"{cfg.num_layers} branches in 0..{N_BRANCHES}")
+        masks = branch_masks(cfg, h.device)
+        layers = [(p_l[k - 1], k) for p_l, k in zip(params["layers"], key)
+                  if k]
+    else:
+        if choice_key is not None:
+            raise ValueError(f"{cfg.name}: choice_key given to a model that "
+                             "is not a supernet")
+        masks = None
+        layers = [(p_l, 1) for p_l in params["layers"]]
+    for p_l, branch in layers:
+        h, a = _block_fwd(p_l, h, positions, cfg, kind, window, backend,
+                          branch, masks)
+        if a is not None:
+            aux = aux + a
     h = rmsnorm(params["final_ln"], h)
     out = h if return_hidden else unembed(params["embed"], h)
     return (out, aux) if return_aux else out
@@ -121,7 +249,7 @@ def init_cache(params: Params, cfg: ModelConfig, batch: int,
                cache_len: int) -> Params:
     """An empty decode cache: ``t`` (the next position, a host int) and
     one KV ring (dense, moe) or conv/state record (ssm) per layer."""
-    kind = _layer_kind(cfg)
+    kind = _serving_kind(cfg)
     dt = cfg.torch_dtype
     dev = params["embed"]["table"].device
     if kind in ("dense", "moe"):
@@ -154,7 +282,7 @@ def decode_step(params: Params, cfg: ModelConfig, token: torch.Tensor,
     returned.  No kernel launches: attention reads the cache with
     einsums, and the MoE takes its torch route (routing over the B
     tokens of the step)."""
-    kind = _layer_kind(cfg)
+    kind = _serving_kind(cfg)
     t = cache["t"]
     h = embed(params["embed"], token)
     for li, p_l in enumerate(params["layers"]):
