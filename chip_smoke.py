@@ -58,11 +58,18 @@ Phases, each fatal on failure:
    bfloat16 at the shapes of the
    JAX package's kernel sweep (GQA, MQA, S = 384), S = 100 (one ragged
    tile), head dims 80 and 36, qwen1.5-0.5b's prefill (4, 1024, 16, 16,
-   64) and granite-moe-1b-a400m's (4, 1024, 16, 8, 64),
+   64), granite-moe-1b-a400m's (4, 1024, 16, 8, 64) and the dense
+   shelf's at head dim 128: chatglm3-6b's (4, 1024, 32, 2, 128),
+   starcoder2-3b's (4, 1024, 24, 2, 128) and deepseek-67b's (4, 1024,
+   64, 8, 128),
    each causal, with window 64 and 256, and bidirectional (rtol 2e-5 /
    atol 1e-4 in float32, 2^-7 / 1e-3 in bfloat16: one rounding of the
    output), each call on the kernel its dtype and head dim select (bf16
-   with D % 8 == 0: the tensor-core kernel; else the CUDA-core one); K4
+   with D % 8 == 0: the tensor-core kernel; else the CUDA-core one), and
+   starcoder2-3b's long prefill (1, 8192, 24, 2, 128) at its window of
+   4096, longer than any tile, to the same limits, where the plain
+   version without the window (and in float32 with it one key longer)
+   must fall outside them; K4
    at the sweep's shapes, two P tiles, mamba2-780m's prefill, one chunk,
    32 chunks, no decay and strong decay (rtol = atol = 2e-4), each call
    one launch of each of its three stage kernels, and two calls equal
@@ -80,13 +87,21 @@ Phases, each fatal on failure:
    launches) against the einsum ``moe.expert_ffn`` at granite's prefill
    shape; each timed at its serving shape beside its bound and its plain
    version, K3 also beside ``scaled_dot_product_attention`` (at qwen's
-   and granite's shapes and at window 256), K4 beside the torch route's
+   and granite's shapes and at window 256, at the dense shelf's three
+   prefills, and at starcoder2's 1 x 8192 tokens at window 4096), K4
+   beside the torch route's
    chunked scan, and K5 beside ``torch.bmm`` (at granite's wi and wo
    shapes);
 10. the serving path at full width, bf16, seeded random weights on the
    card, 4 requests: for qwen1.5-0.5b (1024-token prompt; also with
-   window 256), mamba2-780m (1000-token prompt: chunk padding) and
-   granite-moe-1b-a400m (1024-token prompt; also with window 256),
+   window 256), mamba2-780m (1000-token prompt: chunk padding),
+   granite-moe-1b-a400m (1024-token prompt; also with window 256) and
+   the dense shelf at head dim 128 (1024-token prompts):
+   chatglm3-6b (28 layers, 5.98 B parameters), starcoder2-3b (30 layers;
+   also one request of 8192 tokens at its sliding window of 4096) and
+   deepseek-67b at full width but 8 of its 95 layers (6.38 B
+   parameters: the whole model, about 134 GB in bf16, does not fit one
+   card),
    ``make_prefill_step`` on the kernel route (launch counts zeroed
    before and read after: per layer one K3, one K4, or one K3 and three
    K5; every K3 and K5 of a bf16 prefill on its tensor-core kernel, of a
@@ -94,7 +109,8 @@ Phases, each fatal on failure:
    kernels per K4 call) against the torch route, within
    LOGIT_TOL of the logits' largest
    magnitude (15 % in bf16; 0.1 % in a float32 prefill at the same
-   widths and depth).  For granite also: every MoE layer's input from
+   widths and depth, for every arch).  For granite also: every MoE
+   layer's input from
    the torch-route prefill through ``moe_apply`` on both routes (equal
    routing by construction: y within the phase-9 limits times three,
    the K5 products a layer chains; aux equal), and the number of top-k
@@ -154,9 +170,28 @@ Phases, each fatal on failure:
    ``train_fill`` within one bf16 step of the torch route, and K1 timed
    at that master; (c) the same search at smoke size in float32 against
    the CPU (keys and CommStats equal, masters within 1e-4), and both
-   examples at their default sizes.
+   examples at their default sizes;
+14. the LM training launcher (``launch/train.py``): (a) qwen1.5-0.5b at
+   full width and depth in bf16, ``make_train_step`` with AdamW, 2
+   microbatches, remat and the fused cross entropy on the torch route,
+   8 steps of 4 x 4096 ``make_lm_stream`` tokens: every loss finite,
+   the last below the first, no kernel launched (counts zeroed before,
+   read after); step time, tokens/s, peak memory and model FLOP/s
+   logged; (b) at full width, 2 layers, float32: remat on against off
+   (bit for bit) and 2 microbatches against 1 (parameters within 1e-6
+   of their largest) on one SGD step, the fused cross entropy against the naive one at
+   4 x 4096 tokens and V = 151936 (loss within 1e-6 relative, the
+   table's gradient within 1e-5 of its largest, h's within 2e-4 of a
+   float64 recomputation of 512 rows, a lower peak); (c) a train step on
+   ``backend="kernel"`` raises (the kernels are forward-only), with no
+   launch; (d) at smoke size in float32 one SGD and one AdamW step, and
+   3 SGD steps of the supernet with a key each, against the CPU (within
+   1e-5; AdamW's parameters but for noise-gradient entries); (e)
+   ``launch.train`` and the ``train_lm`` example (plain and
+   ``--supernet``) at their defaults.
 
-Prints the traced rounds as one JSON line, the kernels as one JSON line,
+Prints the traced rounds and the training numbers as one JSON line, the
+kernels as one JSON line,
 then the ``nvidia-smi`` line, then ``{"ok": true, "device": {...}}`` as
 the last line.  Exits non-zero
 without that line if any phase fails or no CUDA device is present.
@@ -186,17 +221,22 @@ from repro_torch.data import ClientDataset, make_classification, \
 from repro_torch.comm import make_codec  # noqa: E402
 from repro_torch.engine import FedAvgBaseline, FedEngine, LoopBackend, \
     OfflineNas, RunConfig, VmapBackend, backends  # noqa: E402
-from repro_torch.examples import federated_nas_cifar, quickstart  # noqa: E402
+from repro_torch.core.flops import train_flops  # noqa: E402
+from repro_torch.examples import federated_nas_cifar, quickstart, \
+    train_lm  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
 from repro_torch.kernels import expert_gemm as egemm  # noqa: E402
 from repro_torch.kernels import fill_aggregate as kfa  # noqa: E402
 from repro_torch.kernels import flash_attention as flash  # noqa: E402
 from repro_torch.kernels import quantize as kq  # noqa: E402
 from repro_torch.kernels import ssd_scan as kssd  # noqa: E402
+from repro_torch.launch import train as lm_train  # noqa: E402
 from repro_torch.launch.serve import greedy_generate, make_decode_step, \
     make_prefill_step  # noqa: E402
 from repro_torch.models import moe  # noqa: E402
 from repro_torch.models import transformer as tr  # noqa: E402
+from repro_torch.models.layers import cross_entropy, \
+    fused_cross_entropy, unembed  # noqa: E402
 from repro_torch.models.ssm import ssd_chunked_torch  # noqa: E402
 from repro_torch.obs import load_trace, round_split, traced  # noqa: E402
 
@@ -1126,16 +1166,28 @@ FLASH_TOL = {torch.float32: (2e-5, 1e-4), torch.bfloat16: (2 ** -7, 1e-3)}
 SSD_TOL = 2e-4
 QWEN_ATTN = (4, 1024, 16, 16, 64)       # B, S, H, Kh, D of a qwen prefill
 GRANITE_ATTN = (4, 1024, 16, 8, 64)     # granite's prefill: GQA, 2 heads a KV
+# the dense shelf's prefills, head dim 128 (the tensor-core kernel's
+# second variant): GQA 16, 12 and 8 query heads a KV head
+CHATGLM_ATTN = (4, 1024, 32, 2, 128)
+STARCODER_ATTN = (4, 1024, 24, 2, 128)
+DEEPSEEK_ATTN = (4, 1024, 64, 8, 128)
+# starcoder2's long prefill: one request of 8192 tokens at its sliding
+# window of 4096, which cuts the context
+STARCODER_LONG = ((1, 8192, 24, 2, 128), 4096)
 MAMBA_SSD = (4, 8, 128, 48, 64, 128)    # B, NC, Q, H, P, N of a mamba2
 #                                         prefill (1000 tokens -> 8 chunks)
 # the sweep's shapes, a ragged tile, head dims 80 (zamba2) and 36 (bf16
-# with D % 8 != 0: the CUDA-core kernel), qwen's and granite's prefills
+# with D % 8 != 0: the CUDA-core kernel), qwen's and granite's prefills,
+# and the dense shelf's
 FLASH_CASES = [(2, 128, 4, 4, 64), (1, 256, 4, 2, 128), (1, 384, 6, 1, 64),
                (2, 100, 4, 2, 64), (1, 256, 4, 4, 80), (1, 256, 4, 2, 36),
-               QWEN_ATTN, GRANITE_ATTN]
+               QWEN_ATTN, GRANITE_ATTN, CHATGLM_ATTN, STARCODER_ATTN,
+               DEEPSEEK_ATTN]
 # K3 timed at these (shape, window), causal, bf16, each beside sdpa on the
 # same shape and mask; the first is the kernels line's own
-FLASH_TIMED = [(QWEN_ATTN, 0), (GRANITE_ATTN, 0), (QWEN_ATTN, 256)]
+FLASH_TIMED = [(QWEN_ATTN, 0), (GRANITE_ATTN, 0), (QWEN_ATTN, 256),
+               (CHATGLM_ATTN, 0), (STARCODER_ATTN, 0), (DEEPSEEK_ATTN, 0),
+               STARCODER_LONG]
 # head dims of the tensor-core kernel's four variants (D <= 64, 128, 192,
 # 256), whose registers, local memory and shared memory are reported
 TC_HEAD_DIMS = (64, 128, 192, 256)
@@ -1160,11 +1212,30 @@ SSD_CASES = [((2, 4, 64, 3, 32, 16), 0.1), ((1, 2, 128, 2, 64, 64), 0.1),
 # kernel is held to, within SSD_TOL
 SSD_NO_DECAY = (1, 4, 128, 4, 64, 128)
 REQUESTS, NEW_TOKENS, GREEDY_PROMPT = 4, 16, 64
-# arch -> (prompt length, windows, kernel launches per layer per prefill)
-SERVE = {"qwen1.5-0.5b": (1024, (0, 256), {"flash_attention": 1}),
-         "mamba2-780m": (1000, (0,), {"ssd_scan": 1}),
-         "granite-moe-1b-a400m": (1024, (0, 256),
-                                  {"flash_attention": 1, "expert_gemm": 3})}
+# arch -> its phase-10 run: prompt length, windows, kernel launches per
+# layer per prefill; "depth", the layers it is cut to (deepseek-67b's 95
+# take about 134 GB in bf16, more than one card holds; 8 are 6.38 B
+# parameters); "long", a further prefill as (requests, prompt length,
+# window) (starcoder2's 8192 tokens at its sliding window of 4096); and
+# "supernet", the archs of phase 13 (a), one per family.  Every arch's
+# prefill also runs in float32 at full width (the config's widths and
+# depth, float32 weights from the same seed)
+SERVE = {"qwen1.5-0.5b": dict(prompt=1024, windows=(0, 256),
+                              per_layer={"flash_attention": 1},
+                              supernet=True),
+         "mamba2-780m": dict(prompt=1000, windows=(0,),
+                             per_layer={"ssd_scan": 1}, supernet=True),
+         "granite-moe-1b-a400m": dict(prompt=1024, windows=(0, 256),
+                                      per_layer={"flash_attention": 1,
+                                                 "expert_gemm": 3},
+                                      supernet=True),
+         "chatglm3-6b": dict(prompt=1024, windows=(0,),
+                             per_layer={"flash_attention": 1}),
+         "starcoder2-3b": dict(prompt=1024, windows=(0,),
+                               per_layer={"flash_attention": 1},
+                               long=(1, 8192, 4096)),
+         "deepseek-67b": dict(prompt=1024, windows=(0,),
+                              per_layer={"flash_attention": 1}, depth=8)}
 # kernel route against torch route at full width, relative to the
 # logits' largest magnitude.  In bf16 the routes sum attention / the scan
 # in another order before the bf16 cast, and 24-48 layers of random
@@ -1205,40 +1276,72 @@ def ssd_inputs(b, nc, q, h, p, n, seed, decay=0.1):
     return xs, a, bm, cm
 
 
+def check_flash_call(q, k, v, causal: bool, window: int, which: str,
+                     tol: tuple, label: str) -> tuple:
+    """One K3 call against its plain version within ``tol`` (rtol,
+    atol); the call must run one ``which`` kernel.  Returns (max |kernel
+    - plain|, plain)."""
+    before = dict(flash.VARIANT_LAUNCHES)
+    out = ops.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    ran = {n: flash.VARIANT_LAUNCHES[n] - before[n] for n in before}
+    if ran != {**dict.fromkeys(before, 0), which: 1}:
+        raise AssertionError(f"flash_attention {label}: ran {ran}, "
+                             f"expected one {which} launch")
+    plain = ref.flash_attention(q, k, v, causal=causal, window=window)
+    torch.testing.assert_close(out.float(), plain.float(), rtol=tol[0],
+                               atol=tol[1])
+    err = float((out.float() - plain.float()).abs().max())
+    log(f"check flash_attention {label} causal={causal} window={window} "
+        f"({which}): max |kernel - plain| = {err!r}")
+    return err, plain
+
+
 def check_flash() -> float:
     """K3 against its plain version at every case and mask, in float32
     and bf16; each call must run one kernel: the tensor-core kernel for
-    bf16 with D % 8 == 0, else the CUDA-core kernel."""
+    bf16 with D % 8 == 0, else the CUDA-core kernel.  Then starcoder2's
+    long prefill at its own window, which is longer than any tile, held
+    to the same limits; there the plain version without the window (and,
+    in float32, with the window one key longer) must fall outside them,
+    so a kernel that ignored or misplaced the cut-off would fail."""
     worst = 0.0
     for dtype in (torch.float32, torch.bfloat16):
-        rtol, atol = FLASH_TOL[dtype]
+        tol = FLASH_TOL[dtype]
+        name = str(dtype)[6:]
         for i, shape in enumerate(FLASH_CASES):
             q, k, v = flash_inputs(*shape, dtype, seed=200 + i)
             which = "tensor_core" if (dtype == torch.bfloat16
                                       and shape[-1] % 8 == 0) \
                 else "cuda_core"
             for causal, window in FLASH_MASKS:
-                before = dict(flash.VARIANT_LAUNCHES)
-                out = ops.flash_attention(q, k, v, causal=causal,
-                                          window=window)
-                torch.cuda.synchronize()
-                ran = {n: flash.VARIANT_LAUNCHES[n] - before[n]
-                       for n in before}
-                if ran != {**dict.fromkeys(before, 0), which: 1}:
-                    raise AssertionError(f"flash_attention {shape} "
-                                         f"{dtype}: ran {ran}, expected "
-                                         f"one {which} launch")
-                plain = ref.flash_attention(q, k, v, causal=causal,
-                                            window=window)
-                torch.testing.assert_close(out.float(), plain.float(),
-                                           rtol=rtol, atol=atol)
-                err = float((out.float() - plain.float()).abs().max())
+                err, _ = check_flash_call(q, k, v, causal, window, which,
+                                          tol, f"{name} {shape}")
                 worst = max(worst, err)
-                log(f"check flash_attention {str(dtype)[6:]} {shape} "
-                    f"causal={causal} window={window} ({which}): max "
-                    f"|kernel - plain| = {err!r}")
             del q, k, v
-    torch.cuda.empty_cache()
+        shape, window = STARCODER_LONG
+        q, k, v = flash_inputs(*shape, dtype, seed=250)
+        which = "tensor_core" if dtype == torch.bfloat16 else "cuda_core"
+        err, plain = check_flash_call(q, k, v, True, window, which, tol,
+                                      f"{name} {shape}")
+        worst = max(worst, err)
+        witnesses = [("no window", 0)]
+        if dtype == torch.float32:
+            witnesses.append((f"window {window + 1}", window + 1))
+        for what, w in witnesses:
+            other = ref.flash_attention(q, k, v, causal=True, window=w)
+            gap = float((other.float() - plain.float()).abs().max())
+            log(f"check flash_attention {name} {shape}: plain version "
+                f"with {what} against window {window}: max gap {gap!r}")
+            if torch.allclose(other.float(), plain.float(), rtol=tol[0],
+                              atol=tol[1]):
+                raise AssertionError(f"flash_attention {shape} {name}: "
+                                     f"{what} is within FLASH_TOL of "
+                                     f"window {window}; the check cannot "
+                                     "see the cut-off")
+            del other
+        del q, k, v, plain
+        torch.cuda.empty_cache()
     return worst
 
 
@@ -1675,29 +1778,47 @@ def compare_routes(cfg, params, batch, window: int, per_prefill: dict,
 
 
 def serve_arch(arch: str, card: str) -> dict:
-    """Phase 10 for one arch at full width.  Returns the kernel launches
-    of one kernel-route prefill (window 0)."""
-    prompt_len, windows, per_layer = SERVE[arch]
+    """Phase 10 for one arch at full width (and its full depth but where
+    its "depth" cuts it).  Returns the kernel launches of one
+    kernel-route prefill (window 0)."""
+    run = SERVE[arch]
     cfg = get_config(arch)
-    per_prefill = {k: n * cfg.num_layers for k, n in per_layer.items()}
+    if "depth" in run:
+        log(f"{arch}: depth cut to {run['depth']} of its "
+            f"{cfg.num_layers} layers (full width; the whole model does "
+            "not fit one card)")
+        cfg = cfg.replace(num_layers=run["depth"])
+    per_prefill = {k: n * cfg.num_layers
+                   for k, n in run["per_layer"].items()}
     torch.cuda.reset_peak_memory_stats()
     gen = torch.Generator(device="cuda").manual_seed(0)
     params = tr.init_params(gen, cfg)
-    prompt = torch.randint(0, cfg.vocab_size, (REQUESTS, prompt_len),
+    prompt = torch.randint(0, cfg.vocab_size, (REQUESTS, run["prompt"]),
                            generator=gen, device="cuda")
     batch = {"tokens": prompt}
+    n_params = sum(t.numel() for t in tr.flat_params(params).values())
+    log(f"{arch}: {cfg.num_layers} layers, {n_params} parameters, "
+        f"{torch.cuda.memory_allocated()} B on the card")
     launches = None
-    for window in windows:
+    for window in run["windows"]:
         label = f"{arch} prefill, window {window}"
         got = compare_routes(cfg, params, batch, window, per_prefill, label,
                              card)
         launches = got if launches is None else launches
+    if "long" in run:
+        n, s, window = run["long"]
+        long_prompt = torch.randint(0, cfg.vocab_size, (n, s),
+                                    generator=gen, device="cuda")
+        compare_routes(cfg, params, {"tokens": long_prompt}, window,
+                       per_prefill, f"{arch} prefill of {n} x {s} tokens, "
+                       f"window {window}", card)
+        del long_prompt
     peak = torch.cuda.max_memory_allocated()
     # the same prefill at full width in float32 (the config's widths and
     # depth, float32 weights from the same seed)
     cfg32 = cfg.replace(dtype="float32")
-    params32 = tr.init_params(torch.Generator(device="cuda").manual_seed(0),
-                              cfg32)
+    params32 = tr.init_params(
+        torch.Generator(device="cuda").manual_seed(0), cfg32)
     compare_routes(cfg32, params32, batch, 0, per_prefill,
                    f"{arch} prefill in float32", card)
     del params32
@@ -1733,8 +1854,8 @@ def serve_arch(arch: str, card: str) -> dict:
         f"({dec_s / NEW_TOKENS * 1e3!r} ms a step) on {card}; first "
         f"request {new[0].tolist()}")
     log(f"{arch} peak device memory: {peak} B (bf16 prefills), "
-        f"{torch.cuda.max_memory_allocated()} B (the float32 prefill "
-        "included)")
+        f"{torch.cuda.max_memory_allocated()} B (with the float32 prefill "
+        "and the decode)")
     del params, cache
     torch.cuda.empty_cache()
     return launches
@@ -1747,7 +1868,7 @@ def check_replay_smoke() -> None:
     choices, which the replay (2 tokens a step) never does; it is held
     at a capacity that cannot drop (E / k), after the drops at the
     config's own are printed."""
-    for arch, (_, _, per_layer) in SERVE.items():
+    for arch, run in SERVE.items():
         cfg = get_config(arch, smoke=True)
         gen = torch.Generator(device="cuda").manual_seed(1)
         params = tr.init_params(gen, cfg)
@@ -1767,7 +1888,8 @@ def check_replay_smoke() -> None:
         zero_launches()
         last = make_prefill_step(cfg)(params, {"tokens": toks})
         torch.cuda.synchronize()
-        per_prefill = {k: n * cfg.num_layers for k, n in per_layer.items()}
+        per_prefill = {k: n * cfg.num_layers
+                       for k, n in run["per_layer"].items()}
         expect_launches(f"{arch} smoke prefill", per_prefill)
         expect_variants(f"{arch} smoke prefill", cfg, per_prefill)
         cache = tr.prefill_cache(params, cfg, toks[:, :-1], cache_len=12)
@@ -1785,6 +1907,8 @@ def check_replay_smoke() -> None:
 # ---------------------------------------------------------------------------
 
 SUPERNET_TOKENS = 256          # per request, 4 requests (REQUESTS)
+# the supernets of (a): one per family
+SUPERNET_ARCHS = tuple(a for a, run in SERVE.items() if run.get("supernet"))
 # the full-width LM search: 4 clients of make_lm_stream (8 train and 4
 # test sequences of 256 tokens, batch 4), population 4, 2 generations.
 # K1's route stacks (m, P) float32 client and mask matrices: 34.6 GB at
@@ -1862,7 +1986,8 @@ def check_supernet_branches(card: str) -> dict:
     shows (``supernet_key_routes``).  Returns the bf16 launches by arch
     and key."""
     out = {}
-    for arch, (_, _, per_layer) in SERVE.items():
+    for arch in SUPERNET_ARCHS:
+        per_layer = SERVE[arch]["per_layer"]
         out[arch] = {}
         for dtype in ("bfloat16", "float32"):
             cfg = get_config(arch).replace(supernet=True, dtype=dtype)
@@ -2091,8 +2216,308 @@ def check_examples(card: str) -> None:
             expect_launches(f"example {label}", {"fill_aggregate": n_fill})
             log(f"example {label}: {time.perf_counter() - t0!r} s on {card}")
 
+# ---------------------------------------------------------------------------
+# phase 14: the LM training launcher
+# ---------------------------------------------------------------------------
+
+TRAIN_ARCH = "qwen1.5-0.5b"
+# (a) 8 AdamW steps of 4 x 4096 tokens (train_4k's sequence length) in
+# two microbatches, remat and the fused cross entropy, torch route
+TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_LR = 8, 4, 4096, 1e-3
+TRAIN_MICRO = 2
+# (b) the levers at full width, 2 layers, float32: remat and microbatches
+# on one SGD step of 4 x 1024 tokens; the fused cross entropy against
+# the naive one at 4 x 4096 tokens (two chunks of 8192)
+LEVER_LAYERS, LEVER_SEQ = 2, 1024
+REMAT_TOL = 0.0         # remat on = off, bit for bit
+MICRO_TOL = 1e-6        # microbatch 2 vs 1, of the largest |parameter|
+CE_TOKENS = (4, 4096)
+CE_LOSS_RTOL, CE_GRAD_TOL = 1e-6, 1e-5
+# h's gradient sums V = 151936 float32 products per entry, in another
+# order in each version (fused: 8192 rows a product; naive: 16384): the
+# two differ by more than the table gradient (whose sums run over the
+# tokens).  Each is held to a float64 recomputation of CE_ROWS rows of it
+CE_ROWS, CE_H_TOL = 512, 2e-4
+# (d) smoke size, float32, card against the CPU: loss and parameters
+# within 1e-5; the supernet's 3 SGD steps with a key each.  An AdamW step
+# is m / (sqrt(v) + eps): an entry whose gradient is rounding noise moves
+# by up to 2 lr, whichever way the noise falls on each device (the CPU
+# tests measured 42 of 394,624 entries past 1e-6 against the JAX
+# package), so AdamW's parameters are held within 1e-5 but for at most
+# ADAMW_NOISY of the entries, each within 2 lr, and its moments m and v
+# within 1e-5 of their largest.  The 2 lr cap is a whole first step and
+# cannot see a wrong update of a noisy entry: the moments' limit and the
+# noisy share are the checks that bind
+CARD_CPU_TOL = 1e-5
+ADAMW_NOISY = 1e-3
+CARD_CPU_LR = {"sgd": 0.1, "adamw": 1e-3}
+TRAIN_KEYS = ([1, 2], [3, 0], [2, 1])
+
+
+def lm_batch(cfg, seed: int, n: int, seq: int, device="cuda") -> dict:
+    x, y = make_lm_stream(seed, n, seq, cfg.vocab_size)
+    return {"tokens": torch.from_numpy(x).to(device),
+            "labels": torch.from_numpy(y).to(device)}
+
+
+def check_train_full_width(card: str) -> dict:
+    """(a) qwen1.5-0.5b at full width and depth in bf16 through
+    ``make_train_step``: AdamW, 2 microbatches, remat, the fused cross
+    entropy, torch route.  Every loss finite, the last below the first,
+    no kernel launched (launch counts zeroed before, read after).  Logs
+    the step time (median of steps 2-8), tokens/s, peak memory and the
+    model FLOP/s (6 N tokens) against the card's dense bf16 peak."""
+    cfg = get_config(TRAIN_ARCH)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = tr.init_params(torch.Generator(device="cuda").manual_seed(0),
+                            cfg)
+    n = sum(t.numel() for t in tr.flat_params(params).values())
+    mb_rows = TRAIN_BATCH // TRAIN_MICRO
+    scores = mb_rows * cfg.num_heads * TRAIN_SEQ ** 2 * 4
+    log(f"training {TRAIN_ARCH}: {n} parameters, reckoned: weights "
+        f"{2 * n} B, gradients {2 * n} B ({4 * n} B accumulated in "
+        f"float32 over {TRAIN_MICRO} microbatches), AdamW m and v "
+        f"{8 * n} B; the torch route's float32 scores {scores} B per "
+        f"tensor per layer at {mb_rows} x {TRAIN_SEQ} tokens (remat keeps "
+        "one layer's)")
+    opt = lm_train.init_opt(params, "adamw")
+    step = lm_train.make_train_step(
+        cfg, optimizer="adamw", lr=TRAIN_LR, microbatch=TRAIN_MICRO,
+        remat=True, fused_ce=True, backend="torch")
+    data = lm_batch(cfg, 0, TRAIN_STEPS * TRAIN_BATCH, TRAIN_SEQ)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    losses, times = [], []
+    torch.cuda.synchronize()
+    zero_launches()
+    for i in range(TRAIN_STEPS):
+        rows = slice(i * TRAIN_BATCH, (i + 1) * TRAIN_BATCH)
+        t0 = time.perf_counter()
+        params, opt, loss = step(params, opt, {k: v[rows]
+                                               for k, v in data.items()})
+        losses.append(float(loss))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        log(f"training {TRAIN_ARCH} step {i}: loss {losses[-1]!r}, "
+            f"{times[-1]!r} s")
+    expect_launches(f"training {TRAIN_ARCH}, {TRAIN_STEPS} steps", {})
+    if not all(math.isfinite(x) for x in losses) or \
+            not losses[-1] < losses[0]:
+        raise AssertionError(f"training {TRAIN_ARCH}: losses {losses}")
+    if int(opt["step"]) != TRAIN_STEPS:
+        raise AssertionError(f"AdamW step {int(opt['step'])}")
+    step_s = float(np.median(times[1:]))
+    flop_s = train_flops(cfg, tokens) / step_s
+    res = {"arch": TRAIN_ARCH, "parameters": n, "steps": TRAIN_STEPS,
+           "tokens_per_step": tokens, "microbatch": TRAIN_MICRO,
+           "losses": losses, "step_s": step_s, "step_s_all": times,
+           "tokens_per_s": tokens / step_s,
+           "peak_bytes": torch.cuda.max_memory_allocated(),
+           "model_flop_per_s": flop_s, "mfu": flop_s / BF16_FLOPS}
+    log(f"training {TRAIN_ARCH} on {card}: step {step_s!r} s (median of "
+        f"steps 2-{TRAIN_STEPS}), {res['tokens_per_s']!r} tokens/s, "
+        f"{flop_s!r} model FLOP/s ({res['mfu']!r} of {BF16_FLOPS:.0f}), "
+        f"peak {res['peak_bytes']} B")
+    del params, opt, data
+    torch.cuda.empty_cache()
+    return res
+
+
+def param_gap(a: dict, b: dict) -> tuple:
+    """Largest |a - b| over the leaves, and the largest |a|."""
+    gap = max(float((a[k].float() - b[k].float()).abs().max()) for k in a)
+    return gap, max(float(t.float().abs().max()) for t in a.values())
+
+
+def check_train_levers(card: str) -> dict:
+    """(b) At full width, 2 layers, float32 (TF32 off): remat on against
+    off and 2 microbatches against 1, each on one SGD step of 4 x 1024
+    tokens; the fused cross entropy against ``cross_entropy`` of the
+    full logits at 4 x 4096 tokens and qwen's vocabulary (two chunks),
+    loss, gradients and peak memory."""
+    cfg = get_config(TRAIN_ARCH).replace(num_layers=LEVER_LAYERS,
+                                         dtype="float32")
+    params = tr.init_params(torch.Generator(device="cuda").manual_seed(1),
+                            cfg)
+    batch = lm_batch(cfg, 1, 4, LEVER_SEQ)
+
+    def one_step(**kw):
+        step = lm_train.make_train_step(cfg, **kw)
+        new, _, loss = step(params, lm_train.init_opt(params), batch)
+        return float(loss), tr.flat_params(new)
+
+    base = one_step(remat=True)
+    res = {}
+    for name, kw, tol in (("remat off", dict(remat=False), REMAT_TOL),
+                          ("microbatch 2", dict(remat=True, microbatch=2),
+                           MICRO_TOL)):
+        other = one_step(**kw)
+        gap, scale = param_gap(other[1], base[1])
+        res[name] = {"loss_gap": abs(other[0] - base[0]),
+                     "param_gap": gap, "param_scale": scale}
+        log(f"training levers, {name} vs remat on, 1 microbatch: loss "
+            f"{other[0]!r} vs {base[0]!r}, parameters max abs diff {gap!r} "
+            f"(largest |parameter| {scale!r}; limit {tol!r} of it)")
+        if not gap <= tol * scale or \
+                not abs(other[0] - base[0]) <= tol * abs(base[0]):
+            raise AssertionError(f"training levers, {name}: {res[name]}")
+    del base, other
+    torch.cuda.empty_cache()
+
+    g = torch.Generator(device="cuda").manual_seed(2)
+    h = torch.randn((*CE_TOKENS, cfg.d_model), generator=g, device="cuda")
+    labels = lm_batch(cfg, 2, *CE_TOKENS)["labels"]
+    table = params["embed"]["table"]
+    out = {}
+    for fused in (True, False):
+        hh, tt = (t.detach().clone().requires_grad_() for t in (h, table))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base_bytes = torch.cuda.memory_allocated()
+        loss = fused_cross_entropy(hh, tt, labels) if fused else \
+            cross_entropy(unembed({"table": tt}, hh), labels)
+        gh, gt = torch.autograd.grad(loss, [hh, tt])
+        torch.cuda.synchronize()
+        out[fused] = (float(loss.detach()), gh, gt,
+                      torch.cuda.max_memory_allocated() - base_bytes)
+        del hh, tt, loss
+    (lf, ghf, gtf, pf), (ln, ghn, gtn, pn) = out[True], out[False]
+    table_gap = float((gtf - gtn).abs().max()) / float(gtn.abs().max())
+    h_gap = float((ghf - ghn).abs().max()) / float(ghn.abs().max())
+    # float64 h gradient of the first CE_ROWS tokens: (softmax - onehot)
+    # @ table / tokens, row by row
+    x64 = h.reshape(-1, cfg.d_model)[:CE_ROWS].double()
+    y64 = labels.reshape(-1)[:CE_ROWS].long()
+    p64 = torch.softmax(x64 @ table.double().t(), dim=-1)
+    p64[torch.arange(CE_ROWS, device="cuda"), y64] -= 1.0
+    gh64 = (p64 @ table.double()) / labels.numel()
+    scale64 = float(gh64.abs().max())
+    h64 = {nm: float((g.reshape(-1, cfg.d_model)[:CE_ROWS].double()
+                      - gh64).abs().max()) / scale64
+           for nm, g in (("fused", ghf), ("naive", ghn))}
+    del x64, p64, gh64
+    res["fused_ce"] = {"loss": lf, "naive_loss": ln,
+                       "loss_rel_gap": abs(lf - ln) / abs(ln),
+                       "table_grad_gap": table_gap, "h_grad_gap": h_gap,
+                       "h_grad_gap_float64": h64,
+                       "peak_bytes": pf, "naive_peak_bytes": pn}
+    log(f"fused cross entropy vs naive at {CE_TOKENS} tokens, V "
+        f"{cfg.vocab_size}, float32 on {card}: loss {lf!r} vs {ln!r}; "
+        f"table gradient within {table_gap!r} of its largest; h gradient "
+        f"within {h_gap!r} of each other, and of a float64 one on "
+        f"{CE_ROWS} rows fused {h64['fused']!r}, naive {h64['naive']!r}; "
+        f"peak memory above the inputs {pf} B fused, {pn} B naive")
+    if not (abs(lf - ln) <= CE_LOSS_RTOL * abs(ln)
+            and table_gap <= CE_GRAD_TOL and max(h64.values()) <= CE_H_TOL
+            and pf < pn):
+        raise AssertionError(f"fused cross entropy: {res['fused_ce']}")
+    del out, ghf, gtf, ghn, gtn, h, params
+    torch.cuda.empty_cache()
+    return res
+
+
+def check_train_repair() -> None:
+    """(c) A train step on ``backend="kernel"`` raises at its first step
+    (the kernels are forward-only), with no kernel launched."""
+    cfg = get_config(TRAIN_ARCH, smoke=True)
+    params = tr.init_params(torch.Generator(device="cuda").manual_seed(3),
+                            cfg)
+    step = lm_train.make_train_step(cfg, backend="kernel")
+    zero_launches()
+    try:
+        step(params, lm_train.init_opt(params), lm_batch(cfg, 3, 4, 64))
+    except RuntimeError as e:
+        if "forward-only" not in str(e):
+            raise
+        log(f"training on the kernel route raises: {e}")
+    else:
+        raise AssertionError("a train step on the kernel route ran")
+    torch.cuda.synchronize()
+    expect_launches("training on the kernel route", {})
+    expect_variants("training on the kernel route", cfg, {})
+
+
+def to_device(params, device):
+    return tr.nested_params({k: t.to(device) for k, t in
+                             tr.flat_params(params).items()})
+
+
+def check_train_card_vs_cpu() -> dict:
+    """(d) Smoke size, float32: one SGD and one AdamW step on the card
+    against the same step on the CPU (the path the CPU tests hold to the
+    JAX package), loss and parameters within CARD_CPU_TOL; then the
+    qwen supernet's 3 SGD steps with a key each."""
+    res = {}
+    base = get_config(TRAIN_ARCH, smoke=True)
+    for label, cfg, optimizer, keys in (
+            ("sgd", base, "sgd", None), ("adamw", base, "adamw", None),
+            ("supernet sgd", base.replace(supernet=True), "sgd",
+             TRAIN_KEYS)):
+        params = {"cpu": tr.init_params(torch.Generator().manual_seed(4),
+                                        cfg)}
+        params["cuda"] = to_device(params["cpu"], "cuda")
+        step = lm_train.make_train_step(cfg, optimizer=optimizer,
+                                        lr=CARD_CPU_LR[optimizer])
+        opt = {d: lm_train.init_opt(p, optimizer) for d, p in params.items()}
+        worst = (0.0, 0.0)
+        for i, key in enumerate(keys or [None]):
+            losses = {}
+            for dev in params:
+                batch = lm_batch(cfg, 5 + i, 4, 32, params[dev]["embed"][
+                    "table"].device)
+                if key is not None:
+                    batch["choice_key"] = key
+                params[dev], opt[dev], loss = step(params[dev], opt[dev],
+                                                   batch)
+                losses[dev] = float(loss)
+            flat = {d: tr.flat_params(p) for d, p in params.items()}
+            gaps = torch.cat([(flat["cuda"][k].cpu() - flat["cpu"][k])
+                              .abs().ravel() for k in flat["cpu"]])
+            gap = float(gaps.max())
+            loss_gap = abs(losses["cuda"] - losses["cpu"])
+            worst = (max(worst[0], loss_gap), max(worst[1], gap))
+            log(f"training {label} step {i}, smoke size, card vs CPU: loss "
+                f"{losses['cuda']!r} vs {losses['cpu']!r}, parameters max "
+                f"abs diff {gap!r} ({int((gaps > CARD_CPU_TOL).sum())} of "
+                f"{gaps.numel()} entries past {CARD_CPU_TOL})")
+        res[label] = {"loss_gap": worst[0], "param_gap": worst[1]}
+        if optimizer == "adamw":
+            noisy = float((gaps > CARD_CPU_TOL).float().mean())
+            moments = max(
+                float((opt["cuda"][m][k].cpu() - opt["cpu"][m][k]).abs()
+                      .max()) / max(float(opt["cpu"][m][k].abs().max()),
+                                    1e-30)
+                for m in ("m", "v") for k in opt["cpu"][m])
+            res[label].update(noisy_share=noisy, moment_gap=moments)
+            ok = (loss_gap <= CARD_CPU_TOL and noisy <= ADAMW_NOISY
+                  and gap <= 2 * CARD_CPU_LR["adamw"]
+                  and moments <= CARD_CPU_TOL)
+        else:
+            ok = max(worst) <= CARD_CPU_TOL
+        if not ok:
+            raise AssertionError(f"training {label}, card vs CPU: "
+                                 f"{res[label]}")
+    return res
+
+
+def check_train_clis(card: str) -> None:
+    """(e) ``python -m repro_torch.launch.train`` and the train_lm example
+    (plain and ``--supernet``) at their defaults on the card, in this
+    process; no kernel launched."""
+    for label, run in (("launch.train", lambda: lm_train.main([])),
+                       ("examples.train_lm", lambda: train_lm.main([])),
+                       ("examples.train_lm --supernet",
+                        lambda: train_lm.main(["--supernet"]))):
+        zero_launches()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        expect_launches(label, {})
+        log(f"{label}: {time.perf_counter() - t0!r} s on {card}")
+
 
 def main() -> int:
+    t_start = time.perf_counter()
     # 1. device
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2289,6 +2714,17 @@ def main() -> int:
     check_lm_search_smoke()
     check_examples(card)
 
+    # 14. the LM training launcher: full width on the card, its levers,
+    # the forward-only kernel route, the card against the CPU, the CLIs
+    t14 = time.perf_counter()
+    training = {"full_width": check_train_full_width(card),
+                "levers": check_train_levers(card)}
+    check_train_repair()
+    training["card_vs_cpu"] = check_train_card_vs_cpu()
+    check_train_clis(card)
+    log(f"phase 14: {time.perf_counter() - t14!r} s; the script so far "
+        f"{time.perf_counter() - t_start!r} s")
+
     kernels = [{
         "name": "fill_aggregate", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/fill_aggregate.cu",
@@ -2338,6 +2774,8 @@ def main() -> int:
         "replaces": "src/repro/kernels/flash_attention.py:86",
         "launches": serve_launches["qwen1.5-0.5b"]["flash_attention"],
         "max_abs_err": flash_err, **flash_timing, **tc_resources,
+        "serve_launches": {a: n["flash_attention"] for a, n in
+                           serve_launches.items() if n["flash_attention"]},
         "supernet_launches": {a: {k: n.get("flash_attention", 0)
                                   for k, n in by_key.items()}
                               for a, by_key in
@@ -2366,7 +2804,7 @@ def main() -> int:
            for f in ("ms", "plain_ms", "bound_ms")):
         raise AssertionError(f"non-finite timing: {kernels}")
     print(json.dumps({"traced_round": splits, "on_off_round_s": on_off,
-                      "card": card}), flush=True)
+                      "training": training, "card": card}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

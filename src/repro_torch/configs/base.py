@@ -2,11 +2,13 @@
 
 ``ModelConfig`` carries the same fields as the JAX package's, so a
 configuration reads the same in both; ``torch_dtype`` takes the place of
-``jdtype``.  Ported so far: the paper's CIFAR supernet, the three
-language models the serving path runs at full width (``qwen1.5-0.5b``,
-dense; ``mamba2-780m``, SSM; ``granite-moe-1b-a400m``, MoE) and
-``llama4-scout-17b-a16e`` (MoE with a shared expert; too large for one
-card, run at smoke size).  Any other architecture name raises.
+``jdtype``.  Ported so far: the paper's CIFAR supernet; the dense
+models ``qwen1.5-0.5b``, ``chatglm3-6b`` (2d RoPE, 2 KV heads),
+``starcoder2-3b`` (sliding window 4096) and ``deepseek-67b`` (too large
+for one card at full depth); ``mamba2-780m`` (SSM);
+``granite-moe-1b-a400m`` (MoE) and ``llama4-scout-17b-a16e`` (MoE with a
+shared expert; too large for one card, run at smoke size).  The hybrid,
+VLM and audio families raise.
 """
 from __future__ import annotations
 
@@ -86,6 +88,9 @@ class ModelConfig:
 ARCH_ALIASES = {
     "cifar-supernet": "cifar_supernet",
     "qwen1.5-0.5b": "qwen1p5_0p5b",
+    "chatglm3-6b": "chatglm3_6b",
+    "starcoder2-3b": "starcoder2_3b",
+    "deepseek-67b": "deepseek_67b",
     "mamba2-780m": "mamba2_780m",
     "granite-moe-1b-a400m": "granite_moe_1b_a400m",
     "llama4-scout-17b-a16e": "llama4_scout_17b_a16e",
@@ -98,7 +103,8 @@ def get_config(arch: str, smoke: bool = False) -> ModelConfig:
     if mod_name is None:
         raise ValueError(
             f"architecture {arch!r} is not yet ported to repro_torch "
-            f"(ported: {sorted(ARCH_ALIASES)}; the hybrid, VLM and audio "
-            "families follow, ROADMAP queue 1)")
+            f"(ported: {sorted(ARCH_ALIASES)}; still to come: the hybrid "
+            "family (zamba2-2.7b), VLM (internvl2-1b) and audio "
+            "(whisper-large-v3), ROADMAP queue 1)")
     mod = importlib.import_module(f"repro_torch.configs.{mod_name}")
     return mod.smoke_config() if smoke else mod.config()

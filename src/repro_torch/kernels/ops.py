@@ -5,6 +5,10 @@ take.  For tensors on the CPU it computes the plain version in ``ref``;
 for CUDA tensors it launches the kernel or raises — it never falls back.
 ``LAUNCHES`` counts kernel launches per wrapper (and nothing else), so a
 run can show that its main path went through the kernels.
+
+K3, K4 and K5 are forward-only, as in the JAX package (its kernels have
+no VJP): their wrappers raise, on the CPU as on the card, when a
+gradient would be taken through them (``_forward_only``).
 """
 from __future__ import annotations
 
@@ -41,6 +45,16 @@ def _common_device(name: str, *tensors: torch.Tensor) -> torch.device:
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"{name}: unsupported device {dev}")
     return dev
+
+
+def _forward_only(name: str, *tensors: torch.Tensor) -> None:
+    """Raise where autograd would record a call: the CUDA kernel's output
+    carries no history, so a loss through it would silently get no
+    gradient."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name}: the kernel is forward-only, as in the JAX package, "
+            "and takes no gradient; train on backend=\"torch\"")
 
 
 def fill_aggregate(clients: torch.Tensor, masks: torch.Tensor,
@@ -237,7 +251,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     bfloat16), contiguous -> (B, S, H, D) in q's dtype (kernel K3).
 
     Takes what the TPU kernel takes: ``H % Kh == 0``, D <= 256, and S up
-    to 128 or a multiple of 128."""
+    to 128 or a multiple of 128.  Forward-only."""
+    _forward_only("flash_attention", q, k, v)
     _common_device("flash_attention", q, k, v)
     if q.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError("flash_attention: q must be float32 or bfloat16, "
@@ -283,7 +298,8 @@ def ssd_scan(xs: torch.Tensor, a: torch.Tensor, bm: torch.Tensor,
     N)), float32 (kernel K4: one call launches its stage kernels,
     ``kernels/ssd_scan.py``).  The state starts at zero: a non-None
     ``initial_state`` raises, as the TPU kernel asserts.  Q and N are at
-    most 128."""
+    most 128.  Forward-only."""
+    _forward_only("ssd_scan", xs, a, bm, cm)
     if initial_state is not None:
         raise ValueError("ssd_scan: the kernel starts from a zero state; "
                          "initial_state must be None")
@@ -320,7 +336,9 @@ def ssd_scan(xs: torch.Tensor, a: torch.Tensor, bm: torch.Tensor,
 def expert_gemm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x: (E, C, D); w: (E, D, F); one dtype (float32 or bfloat16),
     contiguous -> (E, C, F) in x's dtype: ``x[e] @ w[e]`` with float32
-    sums, rounded once (kernel K5).  Any C, D and F >= 1."""
+    sums, rounded once (kernel K5).  Any C, D and F >= 1.
+    Forward-only."""
+    _forward_only("expert_gemm", x, w)
     _common_device("expert_gemm", x, w)
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError("expert_gemm: x must be float32 or bfloat16, got "

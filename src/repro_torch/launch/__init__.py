@@ -1,3 +1,4 @@
-"""Entry points of the port.  Only ``serve`` (prefill, decode, greedy
-generation) is ported so far; mesh, sharding, training and the dry run
+"""Entry points of the port: ``serve`` (prefill, decode, greedy
+generation), ``train`` (the LM training step and its driver),
+``prefill_trace`` and ``ssd_rounding``.  Mesh, sharding and the dry run
 wait for the mesh slice (ROADMAP queue 1)."""

@@ -5,10 +5,10 @@ batched greedy generation driver.
     python -m repro_torch.launch.serve --arch qwen1.5-0.5b             # card
     python -m repro_torch.launch.serve --arch mamba2-780m --device cpu # CPU
 
-``--arch`` takes ``qwen1.5-0.5b`` (dense), ``mamba2-780m`` (SSM),
-``granite-moe-1b-a400m`` (MoE) and, on the CPU only,
-``llama4-scout-17b-a16e`` (MoE with a shared expert; its full width does
-not fit one card).
+``--arch`` takes ``qwen1.5-0.5b``, ``chatglm3-6b`` and ``starcoder2-3b``
+(dense), ``mamba2-780m`` (SSM), ``granite-moe-1b-a400m`` (MoE) and, on
+the CPU only, ``deepseek-67b`` (dense) and ``llama4-scout-17b-a16e``
+(MoE with a shared expert): their full configs do not fit one card.
 
 On the card the config runs at full width in its dtype; on the CPU
 (``--device cpu``) at its smoke size.  Weights are random, from a seeded

@@ -129,3 +129,48 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     gold = torch.gather(logits, -1, safe[..., None])[..., 0]
     nll = (logz - gold) * mask
     return nll.sum() / torch.clamp(mask.sum(), min=1)
+
+
+def fused_cross_entropy(h: torch.Tensor, table: torch.Tensor,
+                        labels: torch.Tensor, ignore_id: int = -1,
+                        chunk: int = 8192) -> torch.Tensor:
+    """Unembed + mean token cross-entropy over chunks of ``chunk``
+    tokens, never the whole (B, S, V) logits: each chunk's logits are
+    reduced to its summed NLL and token count, and recomputed in the
+    backward pass (non-reentrant ``torch.utils.checkpoint``), so at most
+    one chunk x V of them is live.  The product runs in the parameters'
+    dtype and is cast to float32, as the JAX package's.
+
+    h: (B, S, d); table: (V, d); labels: (B, S).  The tail is padded to
+    whole chunks with ``ignore_id``.
+    """
+    from torch.utils.checkpoint import checkpoint
+
+    b, s, d = h.shape
+    t = b * s
+    chunk = min(chunk, t)
+    n_chunks = -(-t // chunk)
+    pad = n_chunks * chunk - t
+    x = h.reshape(t, d)
+    y = labels.reshape(t)
+    if pad:
+        x = F.pad(x, (0, 0, 0, pad))
+        y = F.pad(y, (0, pad), value=ignore_id)
+
+    def chunk_nll(xc, yc):
+        logits = (xc @ table.t()).float()
+        mask = yc != ignore_id
+        safe = torch.where(mask, yc, torch.zeros_like(yc)).long()
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, safe[:, None])[:, 0]
+        return ((logz - gold) * mask).sum(), mask.sum()
+
+    nll = torch.zeros((), dtype=torch.float32, device=h.device)
+    cnt = torch.zeros((), dtype=torch.int64, device=h.device)
+    for i in range(n_chunks):
+        sl = slice(i * chunk, (i + 1) * chunk)
+        c_nll, c_cnt = checkpoint(chunk_nll, x[sl], y[sl],
+                                  use_reentrant=False)
+        nll = nll + c_nll
+        cnt = cnt + c_cnt
+    return nll / torch.clamp(cnt, min=1)

@@ -125,20 +125,23 @@ def init_params(gen: torch.Generator, cfg: ModelConfig) -> Params:
     }
 
 
+def _flatten_into(out: Dict[str, torch.Tensor], node, prefix: str) -> None:
+    if isinstance(node, torch.Tensor):
+        out[prefix[:-1]] = node
+        return
+    items = node.items() if isinstance(node, dict) else enumerate(node)
+    for k, v in items:
+        _flatten_into(out, v, f"{prefix}{k}.")
+
+
 def flat_params(params: Params) -> Dict[str, torch.Tensor]:
     """Nested params -> one ordered ``{dotted path: tensor}`` dict (the
-    same tensors, no copies); a list's items are named by their index."""
+    same tensors, no copies); a list's items are named by their index.
+    (A module-level walk: a recursive closure over ``out`` would keep the
+    dict, and every tensor in it, alive in a reference cycle until the
+    garbage collector runs.)"""
     out: Dict[str, torch.Tensor] = {}
-
-    def walk(node, prefix):
-        if isinstance(node, torch.Tensor):
-            out[prefix[:-1]] = node
-            return
-        items = node.items() if isinstance(node, dict) else enumerate(node)
-        for k, v in items:
-            walk(v, f"{prefix}{k}.")
-
-    walk(params, "")
+    _flatten_into(out, params, "")
     return out
 
 
@@ -199,7 +202,8 @@ def _block_fwd(p_l, h, positions, cfg: ModelConfig, kind: str, window: int,
 
 def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
             choice_key=None, window: int = 0, backend: str = "kernel",
-            return_hidden: bool = False, return_aux: bool = False):
+            remat: bool = False, return_hidden: bool = False,
+            return_aux: bool = False):
     """Full-sequence forward.  tokens: (B, S) integers -> logits
     (B, S, V), or the final hidden states (B, S, d) with
     ``return_hidden``; with ``return_aux``, a pair of that and the MoE
@@ -209,7 +213,15 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
     expert FFN.  A supernet needs ``choice_key``, one host int per layer:
     layer l runs branch ``choice_key[l]`` (0 skips it), from
     ``params["layers"][l][choice_key[l] - 1]``; only the selected
-    branches are read (the others may be None)."""
+    branches are read (the others may be None).
+
+    ``remat`` runs each layer under non-reentrant
+    ``torch.utils.checkpoint``, so the backward pass recomputes its
+    activations (the JAX package's ``jax.checkpoint`` of its scan body),
+    on the plain stack and on a supernet's selected branches alike.  The
+    JAX package's ``unroll`` (an option of its layer scan) has no
+    counterpart in this Python loop, and its ``prefix`` belongs to the
+    VLM and audio families, which are not ported."""
     kind = _layer_kind(cfg)
     kops.check_backend(backend)
     b, s = tokens.shape
@@ -235,9 +247,15 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
                              "is not a supernet")
         masks = None
         layers = [(p_l, 1) for p_l in params["layers"]]
+    block = _block_fwd
+    if remat:
+        from torch.utils.checkpoint import checkpoint
+
+        def block(*args):
+            return checkpoint(_block_fwd, *args, use_reentrant=False)
     for p_l, branch in layers:
-        h, a = _block_fwd(p_l, h, positions, cfg, kind, window, backend,
-                          branch, masks)
+        h, a = block(p_l, h, positions, cfg, kind, window, backend,
+                     branch, masks)
         if a is not None:
             aux = aux + a
     h = rmsnorm(params["final_ln"], h)

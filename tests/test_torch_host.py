@@ -242,7 +242,7 @@ def test_model_config_matches_reference():
         assert dataclasses.asdict(r) == dataclasses.asdict(p)
         assert p.torch_dtype == torch.float32
     with pytest.raises(ValueError, match="not yet ported"):
-        get_config("deepseek-67b")
+        get_config("zamba2-2.7b")
 
 
 # ---------------------------------------------------------------------------

@@ -37,9 +37,12 @@ from repro_torch.models import transformer as tr  # noqa: E402
 
 ELEM_TOL = 1e-5
 TOL = 1e-4
-# llama4's smoke config is the only one with a shared expert
+# llama4's smoke config is the only one with a shared expert; chatglm3
+# the only one with 2d RoPE; starcoder2 and deepseek complete the dense
+# shelf (their configs and the bridge)
 ARCHS = ["qwen1.5-0.5b", "mamba2-780m", "granite-moe-1b-a400m",
-         "llama4-scout-17b-a16e"]
+         "llama4-scout-17b-a16e", "chatglm3-6b", "starcoder2-3b",
+         "deepseek-67b"]
 
 
 def close(ours, theirs, tol):

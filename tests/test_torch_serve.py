@@ -119,7 +119,8 @@ def test_greedy_generate_matches_reference_tokens(served):
     np.testing.assert_array_equal(out.numpy(), ref["greedy"])
 
 
-@pytest.mark.parametrize("arch", ["mamba2-780m", "granite-moe-1b-a400m"])
+@pytest.mark.parametrize("arch", ["mamba2-780m", "granite-moe-1b-a400m",
+                                  "chatglm3-6b", "starcoder2-3b"])
 def test_serve_main_runs_on_the_cpu(capsys, arch):
     serve.main(["--arch", arch, "--device", "cpu", "--batch", "2",
                 "--prompt-len", "5", "--steps", "3"])
