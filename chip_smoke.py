@@ -57,11 +57,12 @@ Phases, each fatal on failure:
    GEMM (K5) against their plain versions on the card: K3 in float32 and
    bfloat16 at the shapes of the
    JAX package's kernel sweep (GQA, MQA, S = 384), S = 100 (one ragged
-   tile), head dims 80 and 36, qwen1.5-0.5b's prefill (4, 1024, 16, 16,
+   tile), S = 300 (a ragged last tile past 128), head dims 80 and 36, qwen1.5-0.5b's prefill (4, 1024, 16, 16,
    64), granite-moe-1b-a400m's (4, 1024, 16, 8, 64) and the dense
    shelf's at head dim 128: chatglm3-6b's (4, 1024, 32, 2, 128),
    starcoder2-3b's (4, 1024, 24, 2, 128) and deepseek-67b's (4, 1024,
-   64, 8, 128),
+   64, 8, 128), and zamba2-2.7b's shared block at head dim 80 (4, 1000,
+   32, 32, 80),
    each causal, with window 64 and 256, and bidirectional (rtol 2e-5 /
    atol 1e-4 in float32, 2^-7 / 1e-3 in bfloat16: one rounding of the
    output), each call on the kernel its dtype and head dim select (bf16
@@ -70,7 +71,8 @@ Phases, each fatal on failure:
    4096, longer than any tile, to the same limits, where the plain
    version without the window (and in float32 with it one key longer)
    must fall outside them; K4
-   at the sweep's shapes, two P tiles, mamba2-780m's prefill, one chunk,
+   at the sweep's shapes, two P tiles, mamba2-780m's prefill,
+   zamba2-2.7b's (4, 8, 128, 64, 80, 64) (P = 80), one chunk,
    32 chunks, no decay and strong decay (rtol = atol = 2e-4), each call
    one launch of each of its three stage kernels, and two calls equal
    bit for bit; without decay at 4 chunks and N 128, where the plain
@@ -88,9 +90,9 @@ Phases, each fatal on failure:
    shape; each timed at its serving shape beside its bound and its plain
    version, K3 also beside ``scaled_dot_product_attention`` (at qwen's
    and granite's shapes and at window 256, at the dense shelf's three
-   prefills, and at starcoder2's 1 x 8192 tokens at window 4096), K4
-   beside the torch route's
-   chunked scan, and K5 beside ``torch.bmm`` (at granite's wi and wo
+   prefills, at starcoder2's 1 x 8192 tokens at window 4096, and at
+   zamba2's), K4 beside the torch route's
+   chunked scan (at mamba2's and zamba2's shapes), and K5 beside ``torch.bmm`` (at granite's wi and wo
    shapes);
 10. the serving path at full width, bf16, seeded random weights on the
    card, 4 requests: for qwen1.5-0.5b (1024-token prompt; also with
@@ -101,10 +103,13 @@ Phases, each fatal on failure:
    also one request of 8192 tokens at its sliding window of 4096) and
    deepseek-67b at full width but 8 of its 95 layers (6.38 B
    parameters: the whole model, about 134 GB in bf16, does not fit one
-   card),
+   card), and the hybrid zamba2-2.7b (54 SSM layers at P = 80 and one
+   shared attention block at head dim 80 after every 6th; 1000-token
+   prompt),
    ``make_prefill_step`` on the kernel route (launch counts zeroed
    before and read after: per layer one K3, one K4, or one K3 and three
-   K5; every K3 and K5 of a bf16 prefill on its tensor-core kernel, of a
+   K5, and one K3 per application point of zamba2's shared block: 54 K4
+   and 9 K3; every K3 and K5 of a bf16 prefill on its tensor-core kernel, of a
    float32 one on its CUDA-core kernel; one launch of each of K4's stage
    kernels per K4 call) against the torch route, within
    LOGIT_TOL of the logits' largest
@@ -118,8 +123,14 @@ Phases, each fatal on failure:
    the layers;
    ``greedy_generate`` of 16 tokens on a 64-token prompt with no kernel
    launch (decode replays, as the JAX package's ``prefill_cache``);
-   prefill time, decode tokens/s and peak memory; and, at smoke size in
-   float32, prefill logits against the decode replay within 1e-3 (for
+   prefill time, decode tokens/s and peak memory; the ``chunked``
+   route (attention over blocks of 512 queries, plain PyTorch) against
+   the torch route with no kernel launch, within 15 % (bf16) / 1e-5
+   (float32) of the largest logit, with each route's time and peak
+   memory, for qwen1.5-0.5b's and zamba2-2.7b's prefills in bf16 and
+   float32 and starcoder2-3b's 1 x 8192 tokens at window 4096; and, at
+   smoke size in float32 (zamba2 at 4 layers: two application points),
+   prefill logits against the decode replay within 1e-3 (for
    the MoE at a capacity that cannot drop a choice: a prefill that
    drops differs from the replay, in the JAX package too);
 11. the batched backend: the phase-5 run on ``backend="vmap"``, each
@@ -156,12 +167,14 @@ Phases, each fatal on failure:
    share, the five kernels with the most time); and phase 5's master
    through ``save_pytree`` and ``restore_latest`` onto a CUDA template,
    bit for bit with one key per leaf;
-13. the LM supernet NAS path: (a) the qwen1.5-0.5b, mamba2-780m and
-   granite-moe-1b-a400m supernets at full width, seeded random weights
-   on the card, 4 requests of 256 tokens, ``forward(..., choice_key=)``
-   on the kernel route (launch counts zeroed before and read after: one
-   K3 or K4 call per layer that is not an identity, three K5 per MoE
-   layer on the full or lite branch and none on the bottleneck) against
+13. the LM supernet NAS path: (a) the qwen1.5-0.5b, mamba2-780m,
+   granite-moe-1b-a400m and zamba2-2.7b supernets at full width, seeded
+   random weights on the card, 4 requests of 256 tokens,
+   ``forward(..., choice_key=)`` on the kernel route (launch counts
+   zeroed before and read after: one K3 or K4 call per layer that is
+   not an identity, three K5 per MoE layer on the full or lite branch
+   and none on the bottleneck, and zamba2's shared block 9 K3 on every
+   key, the all-identity one too) against
    the torch route within LOGIT_TOL, on the all-1, all-2, all-3, all-0
    and mixed keys in bf16 and on the mixed key in float32; (b) the
    qwen1.5-0.5b supernet's search (1,080,574,976 parameters, bf16; 4
@@ -188,7 +201,14 @@ Phases, each fatal on failure:
    3 SGD steps of the supernet with a key each, against the CPU (within
    1e-5; AdamW's parameters but for noise-gradient entries); (e)
    ``launch.train`` and the ``train_lm`` example (plain and
-   ``--supernet``) at their defaults.
+   ``--supernet``) at their defaults; (f) (a) again on the ``chunked``
+   route (no kernel launched; step time and peak beside (a)'s); (g) in
+   (b), one SGD step on the chunked route against the torch route
+   (parameters within 1e-5 of their largest); (h) zamba2-2.7b at full
+   width and 12 of its 54 layers (two application points of the shared
+   block), bf16, AdamW, remat, 4 steps of 2 x 4096 tokens on the chunked
+   route: losses finite and falling, no kernel launched, a gradient on
+   every leaf of the shared block.
 
 Prints the traced rounds and the training numbers as one JSON line, the
 kernels as one JSON line,
@@ -1176,24 +1196,33 @@ DEEPSEEK_ATTN = (4, 1024, 64, 8, 128)
 STARCODER_LONG = ((1, 8192, 24, 2, 128), 4096)
 MAMBA_SSD = (4, 8, 128, 48, 64, 128)    # B, NC, Q, H, P, N of a mamba2
 #                                         prefill (1000 tokens -> 8 chunks)
-# the sweep's shapes, a ragged tile, head dims 80 (zamba2) and 36 (bf16
-# with D % 8 != 0: the CUDA-core kernel), qwen's and granite's prefills,
-# and the dense shelf's
+# zamba2-2.7b's prefill of 4 x 1000 tokens at head dim 80: its shared
+# attention block (32 heads, no GQA; the tensor-core kernel's D = 128
+# variant, 80 columns zero-filled to 128) and its SSD scan (64 heads of
+# P = 80: two P tiles, the second 16 wide; N 64)
+ZAMBA_ATTN = (4, 1000, 32, 32, 80)
+ZAMBA_SSD = (4, 8, 128, 64, 80, 64)
+# the sweep's shapes, a ragged tile, a ragged last tile past 128 (the
+# TPU kernel asserts S <= 128 or a multiple of 128; zamba2's prompts are
+# 1000 tokens), head dims 80 (zamba2) and 36 (bf16 with D % 8 != 0: the
+# CUDA-core kernel), qwen's and granite's prefills, the dense shelf's and
+# zamba2's
 FLASH_CASES = [(2, 128, 4, 4, 64), (1, 256, 4, 2, 128), (1, 384, 6, 1, 64),
-               (2, 100, 4, 2, 64), (1, 256, 4, 4, 80), (1, 256, 4, 2, 36),
+               (2, 100, 4, 2, 64), (1, 300, 4, 2, 64), (1, 256, 4, 4, 80),
+               (1, 256, 4, 2, 36),
                QWEN_ATTN, GRANITE_ATTN, CHATGLM_ATTN, STARCODER_ATTN,
-               DEEPSEEK_ATTN]
+               DEEPSEEK_ATTN, ZAMBA_ATTN]
 # K3 timed at these (shape, window), causal, bf16, each beside sdpa on the
 # same shape and mask; the first is the kernels line's own
 FLASH_TIMED = [(QWEN_ATTN, 0), (GRANITE_ATTN, 0), (QWEN_ATTN, 256),
                (CHATGLM_ATTN, 0), (STARCODER_ATTN, 0), (DEEPSEEK_ATTN, 0),
-               STARCODER_LONG]
+               STARCODER_LONG, (ZAMBA_ATTN, 0)]
 # head dims of the tensor-core kernel's four variants (D <= 64, 128, 192,
 # 256), whose registers, local memory and shared memory are reported
 TC_HEAD_DIMS = (64, 128, 192, 256)
 FLASH_MASKS = [(True, 0), (True, 64), (True, 256), (False, 0)]
 # K4's cases as (shape, decay): a = -|normal| x decay.  The sweep's
-# shapes, two P tiles, mamba2's prefill; then one chunk (the state pass
+# shapes, two P tiles, mamba2's and zamba2's prefills; then one chunk (the state pass
 # only hands the local state on), 32 chunks (4096 tokens at B = 1), no
 # decay (a = 0) and strong decay (a about -50 a step, where exp(-acum)
 # overflows float32 within two steps).  Without decay nothing forgets, so
@@ -1203,7 +1232,8 @@ FLASH_MASKS = [(True, 0), (True, 64), (True, 256), (False, 0)]
 # inside SSD_TOL
 SSD_CASES = [((2, 4, 64, 3, 32, 16), 0.1), ((1, 2, 128, 2, 64, 64), 0.1),
              ((1, 8, 32, 1, 16, 8), 0.1), ((1, 2, 128, 2, 80, 64), 0.1),
-             (MAMBA_SSD, 0.1), ((2, 1, 128, 48, 64, 128), 0.1),
+             (MAMBA_SSD, 0.1), (ZAMBA_SSD, 0.1),
+             ((2, 1, 128, 48, 64, 128), 0.1),
              ((1, 32, 128, 48, 64, 128), 0.1), ((1, 2, 128, 4, 64, 64), 0.0),
              ((2, 8, 128, 4, 80, 128), 60.0)]
 # no decay at 4 chunks and N 128: there |y| reaches the thousands, the
@@ -1211,18 +1241,24 @@ SSD_CASES = [((2, 4, 64, 3, 32, 16), 0.1), ((1, 2, 128, 2, 64, 64), 0.1),
 # by more than SSD_TOL, so the float64 recurrence is the witness that the
 # kernel is held to, within SSD_TOL
 SSD_NO_DECAY = (1, 4, 128, 4, 64, 128)
+# K4 timed at these shapes; the first is the kernels line's own
+SSD_TIMED = (MAMBA_SSD, ZAMBA_SSD)
 REQUESTS, NEW_TOKENS, GREEDY_PROMPT = 4, 16, 64
 # arch -> its phase-10 run: prompt length, windows, kernel launches per
-# layer per prefill; "depth", the layers it is cut to (deepseek-67b's 95
-# take about 134 GB in bf16, more than one card holds; 8 are 6.38 B
-# parameters); "long", a further prefill as (requests, prompt length,
-# window) (starcoder2's 8192 tokens at its sliding window of 4096); and
-# "supernet", the archs of phase 13 (a), one per family.  Every arch's
-# prefill also runs in float32 at full width (the config's widths and
-# depth, float32 weights from the same seed)
+# layer per prefill (the hybrid adds one K3 per application point of its
+# shared block, ``prefill_launches``); "depth", the layers it is cut to
+# (deepseek-67b's 95 take about 134 GB in bf16, more than one card
+# holds; 8 are 6.38 B parameters); "long", a further prefill as
+# (requests, prompt length, window) (starcoder2's 8192 tokens at its
+# sliding window of 4096); "supernet", the archs of phase 13 (a), one
+# per family; "chunked", the prefills ("prompt", "long") also run on the
+# chunked route against the torch route; and "smoke", a change to the
+# smoke config of the replay check (zamba2's 4 layers: two application
+# points).  Every arch's prefill also runs in float32 at full width (the
+# config's widths and depth, float32 weights from the same seed)
 SERVE = {"qwen1.5-0.5b": dict(prompt=1024, windows=(0, 256),
                               per_layer={"flash_attention": 1},
-                              supernet=True),
+                              supernet=True, chunked=("prompt",)),
          "mamba2-780m": dict(prompt=1000, windows=(0,),
                              per_layer={"ssd_scan": 1}, supernet=True),
          "granite-moe-1b-a400m": dict(prompt=1024, windows=(0, 256),
@@ -1233,9 +1269,12 @@ SERVE = {"qwen1.5-0.5b": dict(prompt=1024, windows=(0, 256),
                              per_layer={"flash_attention": 1}),
          "starcoder2-3b": dict(prompt=1024, windows=(0,),
                                per_layer={"flash_attention": 1},
-                               long=(1, 8192, 4096)),
+                               long=(1, 8192, 4096), chunked=("long",)),
          "deepseek-67b": dict(prompt=1024, windows=(0,),
-                              per_layer={"flash_attention": 1}, depth=8)}
+                              per_layer={"flash_attention": 1}, depth=8),
+         "zamba2-2.7b": dict(prompt=1000, windows=(0,),
+                             per_layer={"ssd_scan": 1}, supernet=True,
+                             chunked=("prompt",), smoke=dict(num_layers=4))}
 # kernel route against torch route at full width, relative to the
 # logits' largest magnitude.  In bf16 the routes sum attention / the scan
 # in another order before the bf16 cast, and 24-48 layers of random
@@ -1243,6 +1282,13 @@ SERVE = {"qwen1.5-0.5b": dict(prompt=1024, windows=(0, 256),
 # qwen, 4.5 % mamba2, NVIDIA H100 80GB HBM3, 700 W); in float32 only
 # float32 roundings differ
 LOGIT_TOL = {torch.bfloat16: 0.15, torch.float32: 1e-3}
+# the chunked route against the torch route, of the largest logit: in
+# bf16 the chunked route rounds the probabilities to bf16 before the
+# product with v (the JAX package's), the torch route does not; in
+# float32 both compute the same float32 scores, softmax and product,
+# summed in another order
+CHUNKED_TOL = {torch.bfloat16: LOGIT_TOL[torch.bfloat16],
+               torch.float32: 1e-5}
 REPLAY_TOL = 1e-3       # smoke size, float32: prefill vs decode replay
 # K5 against its plain version, (rtol, atol), both after dividing by the
 # output's largest magnitude: in float32 both sum up to 1024 exact
@@ -1508,39 +1554,48 @@ def ssd_resources() -> dict:
 
 
 def time_ssd(card: str) -> dict:
-    """K4 at mamba2-780m's prefill shape, beside the torch route's
-    chunked scan (``ssd_chunked_torch``, several launches, so not a
-    library call) on the same inputs.  Bound: inputs read and
-    outputs written once; float32 work as this data needs it — C Bᵀ over
-    the causal triangle once per (batch, chunk) (it does not depend on
-    the head), and per (batch, head, chunk) the triangle of ((C Bᵀ) ∘ L)
-    X, C Sᵀ and the state update — at the float32 CUDA-core rate."""
-    b, nc, q, h, p, n = MAMBA_SSD
-    args = ssd_inputs(*MAMBA_SSD, seed=10)
-    nbytes = 4 * (2 * b * nc * q * h * p + b * nc * q * h
-                  + 2 * b * nc * q * n + b * h * p * n)
-    tri = q * (q + 1) // 2
-    flops = (b * nc * 2 * tri * n
-             + b * nc * h * (2 * tri * p + 2 * q * n * p + 2 * q * p * n
-                             + 2 * p * n))
-    res = {"ms": device_ms(lambda: ops.ssd_scan(*args), 20),
-           # the plain recurrence is ~5000 small launches: host-bound
-           "plain_ms": device_ms(lambda: ref.ssd_scan(*args), 1, rounds=3),
-           "library_ms": None,      # no single PyTorch call computes it
-           # ~40 launches a call: a longer spin hides their dispatch
-           "torch_route_ms": device_ms(
-               lambda: ssd_chunked_torch(*args), 10, spin=2_000_000),
-           **bound(nbytes, flops, FP32_FLOPS),
-           "stages": list(kssd.STAGES)}
-    call_ms = median_ms(lambda: ops.ssd_scan(*args), 10)
-    log(f"timing ssd_scan {MAMBA_SSD} on {card}: kernel {res['ms']!r} ms "
-        f"(one call with its dispatch {call_ms!r} ms), bound "
-        f"{res['bound_ms']!r} ms ({res['bound_by']}, {nbytes} B, {flops} "
-        f"flop), torch route "
-        f"{res['torch_route_ms']!r} ms, plain {res['plain_ms']!r} ms")
-    del args
+    """K4 at the SSD_TIMED shapes (mamba2-780m's and zamba2-2.7b's
+    prefills), each beside the torch route's chunked scan
+    (``ssd_chunked_torch``, several launches, so not a library call) on
+    the same inputs.  Bound: inputs read and outputs written once;
+    float32 work as this data needs it — C Bᵀ over the causal triangle
+    once per (batch, chunk) (it does not depend on the head), and per
+    (batch, head, chunk) the triangle of ((C Bᵀ) ∘ L) X, C Sᵀ and the
+    state update — at the float32 CUDA-core rate.  Returns the first
+    shape's numbers, with every shape under ``cases``."""
+    cases = []
+    for shape in SSD_TIMED:
+        b, nc, q, h, p, n = shape
+        args = ssd_inputs(*shape, seed=10)
+        nbytes = 4 * (2 * b * nc * q * h * p + b * nc * q * h
+                      + 2 * b * nc * q * n + b * h * p * n)
+        tri = q * (q + 1) // 2
+        flops = (b * nc * 2 * tri * n
+                 + b * nc * h * (2 * tri * p + 2 * q * n * p + 2 * q * p * n
+                                 + 2 * p * n))
+        res = {"shape": list(shape),
+               "ms": device_ms(lambda: ops.ssd_scan(*args), 20),
+               # the plain recurrence is ~5000 small launches: host-bound
+               "plain_ms": device_ms(lambda: ref.ssd_scan(*args), 1,
+                                     rounds=3),
+               "library_ms": None,      # no single PyTorch call computes it
+               # ~40 launches a call: a longer spin hides their dispatch
+               "torch_route_ms": device_ms(
+                   lambda: ssd_chunked_torch(*args), 10, spin=2_000_000),
+               **bound(nbytes, flops, FP32_FLOPS)}
+        call_ms = median_ms(lambda: ops.ssd_scan(*args), 10)
+        log(f"timing ssd_scan {shape} on {card}: kernel {res['ms']!r} ms "
+            f"(one call with its dispatch {call_ms!r} ms), bound "
+            f"{res['bound_ms']!r} ms ({res['bound_by']}, {nbytes} B, "
+            f"{flops} flop), torch route {res['torch_route_ms']!r} ms, "
+            f"plain {res['plain_ms']!r} ms")
+        cases.append(res)
+        del args
     torch.cuda.empty_cache()
-    return res
+    first = {key: cases[0][key] for key in ("ms", "plain_ms", "library_ms",
+                                            "torch_route_ms", "bound_ms",
+                                            "bound_by")}
+    return {**first, "stages": list(kssd.STAGES), "cases": cases}
 
 
 def gemm_inputs(e, c, d, f, dtype, seed):
@@ -1723,6 +1778,61 @@ def check_moe_layers(cfg, params, inputs, label: str) -> None:
         f"{MOE_DEPTH * atol!r})")
 
 
+def prefill_launches(cfg, per_layer: dict) -> dict:
+    """Kernel launches of one kernel-route prefill: ``per_layer`` for
+    each layer, and for the hybrid one K3 per application point of its
+    shared block."""
+    out = {k: n * cfg.num_layers for k, n in per_layer.items()}
+    if cfg.family == "hybrid":
+        out["flash_attention"] = (out.get("flash_attention", 0)
+                                  + cfg.num_layers // cfg.attn_every)
+    return out
+
+
+def compare_chunked(cfg, params, batch, window: int, label: str,
+                    card: str) -> dict:
+    """One prefill on the chunked route and one on the torch route, each
+    with its launch counts zeroed before and read after (none: the
+    chunked route is plain PyTorch, and takes the einsums for the SSD
+    scan and the experts) and its peak device memory above what was
+    allocated before it; last-token logits within CHUNKED_TOL of their
+    largest magnitude; both routes timed."""
+    out, peak = {}, {}
+    steps = {r: make_prefill_step(cfg, window=window, backend=r)
+             for r in ("chunked", "torch")}
+    for r, step in steps.items():
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        zero_launches()
+        out[r] = step(params, batch)
+        torch.cuda.synchronize()
+        peak[r] = torch.cuda.max_memory_allocated() - base
+        expect_launches(f"{label}, {r} route", {})
+        expect_variants(f"{label}, {r} route", cfg, {})
+    n, s = batch["tokens"].shape
+    for r, lg in out.items():
+        if lg.shape != (n, 1, cfg.vocab_size) or not torch.isfinite(lg).all():
+            raise AssertionError(f"{label}, {r} route: logits "
+                                 f"{tuple(lg.shape)} not finite")
+    scale = float(out["torch"].float().abs().max())
+    diff = float((out["chunked"].float() - out["torch"].float()).abs().max())
+    ms = {r: median_ms(lambda: steps[r](params, batch), 3, warmup=0)
+          for r in steps}
+    tol = CHUNKED_TOL[cfg.torch_dtype]
+    log(f"{label}: last-token logits chunked vs torch route max abs diff "
+        f"{diff!r} ({diff / scale!r} of the largest |logit| {scale!r}, "
+        f"limit {tol!r}); prefill of {n} x {s} tokens {ms['chunked']!r} ms "
+        f"(chunked route), {ms['torch']!r} ms (torch route); peak device "
+        f"memory above the weights and inputs {peak['chunked']} B "
+        f"(chunked), {peak['torch']} B (torch) on {card}")
+    if not diff <= tol * scale:
+        raise AssertionError(f"{label}: chunked vs torch route differ by "
+                             f"{diff} > {tol} x {scale}")
+    return {"rel_diff": diff / scale, "ms": ms, "peak_bytes": peak}
+
+
 def compare_routes(cfg, params, batch, window: int, per_prefill: dict,
                    label: str, card: str) -> dict:
     """One prefill on the kernel route (launch counts zeroed before and
@@ -1788,8 +1898,7 @@ def serve_arch(arch: str, card: str) -> dict:
             f"{cfg.num_layers} layers (full width; the whole model does "
             "not fit one card)")
         cfg = cfg.replace(num_layers=run["depth"])
-    per_prefill = {k: n * cfg.num_layers
-                   for k, n in run["per_layer"].items()}
+    per_prefill = prefill_launches(cfg, run["per_layer"])
     torch.cuda.reset_peak_memory_stats()
     gen = torch.Generator(device="cuda").manual_seed(0)
     params = tr.init_params(gen, cfg)
@@ -1805,15 +1914,24 @@ def serve_arch(arch: str, card: str) -> dict:
         got = compare_routes(cfg, params, batch, window, per_prefill, label,
                              card)
         launches = got if launches is None else launches
+    long_batch = None
     if "long" in run:
         n, s, window = run["long"]
-        long_prompt = torch.randint(0, cfg.vocab_size, (n, s),
-                                    generator=gen, device="cuda")
-        compare_routes(cfg, params, {"tokens": long_prompt}, window,
-                       per_prefill, f"{arch} prefill of {n} x {s} tokens, "
-                       f"window {window}", card)
-        del long_prompt
+        long_batch = {"tokens": torch.randint(0, cfg.vocab_size, (n, s),
+                                              generator=gen, device="cuda")}
+        long_label = f"{arch} prefill of {n} x {s} tokens, window {window}"
+        compare_routes(cfg, params, long_batch, window, per_prefill,
+                       long_label, card)
     peak = torch.cuda.max_memory_allocated()
+    # the chunked route (it resets the peak statistics: after it, the
+    # peak is that of the float32 prefill and the decode)
+    chunked = run.get("chunked", ())
+    if "prompt" in chunked:
+        compare_chunked(cfg, params, batch, 0, f"{arch} prefill", card)
+    if "long" in chunked:
+        compare_chunked(cfg, params, long_batch, run["long"][2], long_label,
+                        card)
+    del long_batch
     # the same prefill at full width in float32 (the config's widths and
     # depth, float32 weights from the same seed)
     cfg32 = cfg.replace(dtype="float32")
@@ -1821,6 +1939,9 @@ def serve_arch(arch: str, card: str) -> dict:
         torch.Generator(device="cuda").manual_seed(0), cfg32)
     compare_routes(cfg32, params32, batch, 0, per_prefill,
                    f"{arch} prefill in float32", card)
+    if "prompt" in chunked:
+        compare_chunked(cfg32, params32, batch, 0,
+                        f"{arch} prefill in float32", card)
     del params32
     torch.cuda.empty_cache()
     gp = prompt[:, :GREEDY_PROMPT]
@@ -1854,8 +1975,8 @@ def serve_arch(arch: str, card: str) -> dict:
         f"({dec_s / NEW_TOKENS * 1e3!r} ms a step) on {card}; first "
         f"request {new[0].tolist()}")
     log(f"{arch} peak device memory: {peak} B (bf16 prefills), "
-        f"{torch.cuda.max_memory_allocated()} B (with the float32 prefill "
-        "and the decode)")
+        f"{torch.cuda.max_memory_allocated()} B (the float32 prefill and "
+        "the decode)")
     del params, cache
     torch.cuda.empty_cache()
     return launches
@@ -1869,7 +1990,7 @@ def check_replay_smoke() -> None:
     at a capacity that cannot drop (E / k), after the drops at the
     config's own are printed."""
     for arch, run in SERVE.items():
-        cfg = get_config(arch, smoke=True)
+        cfg = get_config(arch, smoke=True).replace(**run.get("smoke", {}))
         gen = torch.Generator(device="cuda").manual_seed(1)
         params = tr.init_params(gen, cfg)
         toks = torch.randint(0, cfg.vocab_size, (2, 12), generator=gen,
@@ -1888,15 +2009,14 @@ def check_replay_smoke() -> None:
         zero_launches()
         last = make_prefill_step(cfg)(params, {"tokens": toks})
         torch.cuda.synchronize()
-        per_prefill = {k: n * cfg.num_layers
-                       for k, n in run["per_layer"].items()}
+        per_prefill = prefill_launches(cfg, run["per_layer"])
         expect_launches(f"{arch} smoke prefill", per_prefill)
         expect_variants(f"{arch} smoke prefill", cfg, per_prefill)
         cache = tr.prefill_cache(params, cfg, toks[:, :-1], cache_len=12)
         dec, _ = tr.decode_step(params, cfg, toks[:, -1:], cache)
         diff = float((last - dec).abs().max())
-        log(f"{arch} smoke size, float32: prefill vs decode replay max abs "
-            f"diff {diff!r}")
+        log(f"{arch} smoke size ({cfg.num_layers} layers), float32: "
+            f"prefill vs decode replay max abs diff {diff!r}")
         if not diff <= REPLAY_TOL:
             raise AssertionError(f"{arch} smoke: prefill vs replay {diff}")
 
@@ -1930,16 +2050,21 @@ def supernet_keys(num_layers: int) -> dict:
             "mixed": np.arange(num_layers) % 4}
 
 
-def supernet_launches(per_layer: dict, key) -> dict:
+def supernet_launches(cfg, per_layer: dict, key) -> dict:
     """Kernel launches of one kernel-route forward of a supernet on
     ``key``: ``per_layer`` for each layer that is not an identity,
     except the MoE's K5 on the bottleneck branch (2), which runs three
-    einsums on either route, as the JAX package's."""
+    einsums on either route, as the JAX package's; and the hybrid's one
+    K3 per application point of its shared block, whatever the key (it
+    fires by layer index, after an identity layer too)."""
     out: dict = {}
     for b in np.asarray(key).tolist():
         for name, n in per_layer.items():
             if b and not (name == "expert_gemm" and b == 2):
                 out[name] = out.get(name, 0) + n
+    if cfg.family == "hybrid":
+        out["flash_attention"] = (out.get("flash_attention", 0)
+                                  + cfg.num_layers // cfg.attn_every)
     return out
 
 
@@ -1951,7 +2076,7 @@ def supernet_key_routes(cfg, params, toks, name: str, key, per_layer: dict,
     LOGIT_TOL of the logits' largest magnitude.  Returns the kernel
     route's launches."""
     label = f"{arch} supernet, {cfg.dtype}, key {name}"
-    expected = supernet_launches(per_layer, key)
+    expected = supernet_launches(cfg, per_layer, key)
     zero_launches()
     logits_k = tr.forward(params, cfg, toks, choice_key=key)
     torch.cuda.synchronize()
@@ -2231,6 +2356,15 @@ TRAIN_MICRO = 2
 LEVER_LAYERS, LEVER_SEQ = 2, 1024
 REMAT_TOL = 0.0         # remat on = off, bit for bit
 MICRO_TOL = 1e-6        # microbatch 2 vs 1, of the largest |parameter|
+# the chunked route (two blocks of 512 queries) vs the torch route on
+# one SGD step, of the largest |parameter|: the same float32 arithmetic
+# summed in another order
+CHUNKED_STEP_TOL = 1e-5
+# (h) zamba2-2.7b at full width, 12 of its 54 layers (two application
+# points of the shared block), bf16, AdamW, 4 steps of 2 x 4096 tokens
+# on the chunked route (K3 and K4 take no gradient)
+HYBRID_ARCH, HYBRID_LAYERS = "zamba2-2.7b", 12
+HYBRID_STEPS, HYBRID_BATCH = 4, 2
 CE_TOKENS = (4, 4096)
 CE_LOSS_RTOL, CE_GRAD_TOL = 1e-6, 1e-5
 # h's gradient sums V = 151936 float32 products per entry, in another
@@ -2260,13 +2394,14 @@ def lm_batch(cfg, seed: int, n: int, seq: int, device="cuda") -> dict:
             "labels": torch.from_numpy(y).to(device)}
 
 
-def check_train_full_width(card: str) -> dict:
+def check_train_full_width(card: str, backend: str = "torch") -> dict:
     """(a) qwen1.5-0.5b at full width and depth in bf16 through
     ``make_train_step``: AdamW, 2 microbatches, remat, the fused cross
-    entropy, torch route.  Every loss finite, the last below the first,
-    no kernel launched (launch counts zeroed before, read after).  Logs
-    the step time (median of steps 2-8), tokens/s, peak memory and the
-    model FLOP/s (6 N tokens) against the card's dense bf16 peak."""
+    entropy, on ``backend`` (the torch route; (f) the chunked route).
+    Every loss finite, the last below the first, no kernel launched
+    (launch counts zeroed before, read after).  Logs the step time
+    (median of steps 2-8), tokens/s, peak memory and the model FLOP/s
+    (6 N tokens) against the card's dense bf16 peak."""
     cfg = get_config(TRAIN_ARCH)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -2284,7 +2419,7 @@ def check_train_full_width(card: str) -> dict:
     opt = lm_train.init_opt(params, "adamw")
     step = lm_train.make_train_step(
         cfg, optimizer="adamw", lr=TRAIN_LR, microbatch=TRAIN_MICRO,
-        remat=True, fused_ce=True, backend="torch")
+        remat=True, fused_ce=True, backend=backend)
     data = lm_batch(cfg, 0, TRAIN_STEPS * TRAIN_BATCH, TRAIN_SEQ)
     tokens = TRAIN_BATCH * TRAIN_SEQ
     losses, times = [], []
@@ -2298,9 +2433,10 @@ def check_train_full_width(card: str) -> dict:
         losses.append(float(loss))
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
-        log(f"training {TRAIN_ARCH} step {i}: loss {losses[-1]!r}, "
-            f"{times[-1]!r} s")
-    expect_launches(f"training {TRAIN_ARCH}, {TRAIN_STEPS} steps", {})
+        log(f"training {TRAIN_ARCH} ({backend} route) step {i}: loss "
+            f"{losses[-1]!r}, {times[-1]!r} s")
+    expect_launches(f"training {TRAIN_ARCH} ({backend} route), "
+                    f"{TRAIN_STEPS} steps", {})
     if not all(math.isfinite(x) for x in losses) or \
             not losses[-1] < losses[0]:
         raise AssertionError(f"training {TRAIN_ARCH}: losses {losses}")
@@ -2308,13 +2444,15 @@ def check_train_full_width(card: str) -> dict:
         raise AssertionError(f"AdamW step {int(opt['step'])}")
     step_s = float(np.median(times[1:]))
     flop_s = train_flops(cfg, tokens) / step_s
-    res = {"arch": TRAIN_ARCH, "parameters": n, "steps": TRAIN_STEPS,
+    res = {"arch": TRAIN_ARCH, "backend": backend, "parameters": n,
+           "steps": TRAIN_STEPS,
            "tokens_per_step": tokens, "microbatch": TRAIN_MICRO,
            "losses": losses, "step_s": step_s, "step_s_all": times,
            "tokens_per_s": tokens / step_s,
            "peak_bytes": torch.cuda.max_memory_allocated(),
            "model_flop_per_s": flop_s, "mfu": flop_s / BF16_FLOPS}
-    log(f"training {TRAIN_ARCH} on {card}: step {step_s!r} s (median of "
+    log(f"training {TRAIN_ARCH} on the {backend} route on {card}: step "
+        f"{step_s!r} s (median of "
         f"steps 2-{TRAIN_STEPS}), {res['tokens_per_s']!r} tokens/s, "
         f"{flop_s!r} model FLOP/s ({res['mfu']!r} of {BF16_FLOPS:.0f}), "
         f"peak {res['peak_bytes']} B")
@@ -2331,10 +2469,11 @@ def param_gap(a: dict, b: dict) -> tuple:
 
 def check_train_levers(card: str) -> dict:
     """(b) At full width, 2 layers, float32 (TF32 off): remat on against
-    off and 2 microbatches against 1, each on one SGD step of 4 x 1024
-    tokens; the fused cross entropy against ``cross_entropy`` of the
-    full logits at 4 x 4096 tokens and qwen's vocabulary (two chunks),
-    loss, gradients and peak memory."""
+    off and 2 microbatches against 1, and (g) the chunked route against
+    the torch route, each on one SGD step of 4 x 1024 tokens; the fused
+    cross entropy against ``cross_entropy`` of the full logits at 4 x
+    4096 tokens and qwen's vocabulary (two chunks), loss, gradients and
+    peak memory."""
     cfg = get_config(TRAIN_ARCH).replace(num_layers=LEVER_LAYERS,
                                          dtype="float32")
     params = tr.init_params(torch.Generator(device="cuda").manual_seed(1),
@@ -2350,7 +2489,10 @@ def check_train_levers(card: str) -> dict:
     res = {}
     for name, kw, tol in (("remat off", dict(remat=False), REMAT_TOL),
                           ("microbatch 2", dict(remat=True, microbatch=2),
-                           MICRO_TOL)):
+                           MICRO_TOL),
+                          ("chunked route", dict(remat=True,
+                                                 backend="chunked"),
+                           CHUNKED_STEP_TOL)):
         other = one_step(**kw)
         gap, scale = param_gap(other[1], base[1])
         res[name] = {"loss_gap": abs(other[0] - base[0]),
@@ -2412,6 +2554,59 @@ def check_train_levers(card: str) -> dict:
             and pf < pn):
         raise AssertionError(f"fused cross entropy: {res['fused_ce']}")
     del out, ghf, gtf, ghn, gtn, h, params
+    torch.cuda.empty_cache()
+    return res
+
+
+def check_train_hybrid(card: str) -> dict:
+    """(h) zamba2-2.7b at full width and HYBRID_LAYERS layers in bf16
+    through ``make_train_step`` on the chunked route: AdamW, remat, the
+    fused cross entropy, HYBRID_STEPS steps of HYBRID_BATCH x 4096
+    tokens.  Every loss finite, the last below the first, no kernel
+    launched, and every leaf of the shared block given a gradient (its
+    AdamW first moment not all zero)."""
+    cfg = get_config(HYBRID_ARCH).replace(num_layers=HYBRID_LAYERS)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = tr.init_params(torch.Generator(device="cuda").manual_seed(0),
+                            cfg)
+    n = sum(t.numel() for t in tr.flat_params(params).values())
+    opt = lm_train.init_opt(params, "adamw")
+    step = lm_train.make_train_step(cfg, optimizer="adamw", lr=TRAIN_LR,
+                                    remat=True, backend="chunked")
+    data = lm_batch(cfg, 6, HYBRID_STEPS * HYBRID_BATCH, TRAIN_SEQ)
+    losses, times = [], []
+    torch.cuda.synchronize()
+    zero_launches()
+    for i in range(HYBRID_STEPS):
+        rows = slice(i * HYBRID_BATCH, (i + 1) * HYBRID_BATCH)
+        t0 = time.perf_counter()
+        params, opt, loss = step(params, opt, {k: v[rows]
+                                               for k, v in data.items()})
+        losses.append(float(loss))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    label = (f"training {HYBRID_ARCH} at {HYBRID_LAYERS} layers (chunked "
+             "route)")
+    expect_launches(label, {})
+    no_grad = [k for k, m in opt["m"].items()
+               if k.startswith("shared.") and not bool((m != 0).any())]
+    shared = [k for k in opt["m"] if k.startswith("shared.")]
+    res = {"arch": HYBRID_ARCH, "layers": HYBRID_LAYERS, "parameters": n,
+           "losses": losses, "step_s_all": times,
+           "step_s": float(np.median(times[1:])),
+           "tokens_per_s": HYBRID_BATCH * TRAIN_SEQ
+           / float(np.median(times[1:])),
+           "peak_bytes": torch.cuda.max_memory_allocated(),
+           "shared_leaves": len(shared)}
+    log(f"{label} on {card}: {n} parameters, losses {losses}, step "
+        f"{res['step_s']!r} s (median of steps 2-{HYBRID_STEPS}), "
+        f"{res['tokens_per_s']!r} tokens/s, peak {res['peak_bytes']} B; "
+        f"{len(shared)} shared-block leaves, without a gradient: {no_grad}")
+    if not all(math.isfinite(x) for x in losses) or \
+            not losses[-1] < losses[0] or no_grad or not shared:
+        raise AssertionError(f"{label}: {res}, no gradient: {no_grad}")
+    del params, opt, data
     torch.cuda.empty_cache()
     return res
 
@@ -2718,7 +2913,10 @@ def main() -> int:
     # the forward-only kernel route, the card against the CPU, the CLIs
     t14 = time.perf_counter()
     training = {"full_width": check_train_full_width(card),
-                "levers": check_train_levers(card)}
+                "full_width_chunked": check_train_full_width(card,
+                                                             "chunked"),
+                "levers": check_train_levers(card),
+                "hybrid_chunked": check_train_hybrid(card)}
     check_train_repair()
     training["card_vs_cpu"] = check_train_card_vs_cpu()
     check_train_clis(card)
@@ -2787,9 +2985,14 @@ def main() -> int:
         "launches": serve_launches["mamba2-780m"]["ssd_scan"],
         "max_abs_err": ssd_err, **ssd_timing,
         "stage_resources": ssd_stage_resources,
-        "supernet_launches": {k: n.get("ssd_scan", 0) for k, n in
-                              supernet_launches_by_key["mamba2-780m"]
-                              .items()},
+        "serve_launches": {a: n["ssd_scan"] for a, n in
+                           serve_launches.items() if n["ssd_scan"]},
+        "supernet_launches": {a: {k: n.get("ssd_scan", 0)
+                                  for k, n in by_key.items()}
+                              for a, by_key in
+                              supernet_launches_by_key.items()
+                              if any(n.get("ssd_scan")
+                                     for n in by_key.values())},
     }, {
         "name": "expert_gemm", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/expert_gemm.cu",

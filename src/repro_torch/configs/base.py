@@ -7,8 +7,9 @@ models ``qwen1.5-0.5b``, ``chatglm3-6b`` (2d RoPE, 2 KV heads),
 ``starcoder2-3b`` (sliding window 4096) and ``deepseek-67b`` (too large
 for one card at full depth); ``mamba2-780m`` (SSM);
 ``granite-moe-1b-a400m`` (MoE) and ``llama4-scout-17b-a16e`` (MoE with a
-shared expert; too large for one card, run at smoke size).  The hybrid,
-VLM and audio families raise.
+shared expert; too large for one card, run at smoke size); and
+``zamba2-2.7b`` (hybrid: SSM layers and one shared attention block).
+The VLM and audio families raise.
 """
 from __future__ import annotations
 
@@ -94,6 +95,7 @@ ARCH_ALIASES = {
     "mamba2-780m": "mamba2_780m",
     "granite-moe-1b-a400m": "granite_moe_1b_a400m",
     "llama4-scout-17b-a16e": "llama4_scout_17b_a16e",
+    "zamba2-2.7b": "zamba2_2p7b",
 }
 
 
@@ -103,8 +105,7 @@ def get_config(arch: str, smoke: bool = False) -> ModelConfig:
     if mod_name is None:
         raise ValueError(
             f"architecture {arch!r} is not yet ported to repro_torch "
-            f"(ported: {sorted(ARCH_ALIASES)}; still to come: the hybrid "
-            "family (zamba2-2.7b), VLM (internvl2-1b) and audio "
-            "(whisper-large-v3), ROADMAP queue 1)")
+            f"(ported: {sorted(ARCH_ALIASES)}; still to come: VLM "
+            "(internvl2-1b) and audio (whisper-large-v3), ROADMAP queue 1)")
     mod = importlib.import_module(f"repro_torch.configs.{mod_name}")
     return mod.smoke_config() if smoke else mod.config()

@@ -18,7 +18,8 @@ of ``L`` per-layer dicts with the same names and the same per-layer
 layouts (dense ``w`` is ``(d_in, d_out)`` in both; a MoE layer's
 ``moe.router.w`` is ``(d, E)``, ``moe.experts.wi``/``wg`` ``(E, d, F)``
 and ``wo`` ``(E, F, d)``, beside ``moe.shared`` where the config has a
-shared expert).  Leaves are matched by path.  A supernet's layer leaves
+shared expert).  The hybrid's ``shared`` block is one unstacked dense
+block in both, a supernet's too.  Leaves are matched by path.  A supernet's layer leaves
 are ``(L, 3, ...)`` in the JAX package (the weighted branches 1-3 on the
 second axis) and ``params["layers"][l][b]`` here, a list of 3 branch
 dicts per layer; ``models.transformer.flat_params`` then names them
@@ -87,10 +88,10 @@ def params_to_reference(params: Dict[str, torch.Tensor]):
 
 
 def _lm_family_check(cfg: ModelConfig) -> None:
-    if cfg.family not in ("dense", "moe", "ssm"):
+    if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
         raise NotImplementedError(
-            f"{cfg.name}: only the dense, moe and ssm families are ported "
-            "(ROADMAP queue 1)")
+            f"{cfg.name}: only the dense, moe, ssm and hybrid families are "
+            "ported (ROADMAP queue 1)")
 
 
 def _leaf_to_port(a, dtype: torch.dtype) -> torch.Tensor:

@@ -24,14 +24,16 @@ LAUNCHES = {"fill_aggregate": 0, "int8_scale": 0, "quantize_int8": 0,
             "dequantize_int8": 0, "flash_attention": 0, "ssd_scan": 0,
             "expert_gemm": 0}
 # the routes of the language models' attention, SSD scan and expert FFN:
-# the kernel (its plain version on the CPU) or the plain einsum path
-BACKENDS = ("kernel", "torch")
+# the kernel (its plain version on the CPU), the plain einsum path, or
+# attention over query blocks (``models/attention.py::_attend_chunked``;
+# the SSD scan and the expert FFN take the einsum path there).  Nothing
+# picks ``"chunked"`` on its own: it is never a default nor a fallback
+BACKENDS = ("kernel", "torch", "chunked")
 
 
 def check_backend(backend: str) -> None:
     """Raise on a route name the port does not take (the JAX package's
-    ``"xla"``/``"pallas"`` are ``"torch"``/``"kernel"`` here; its
-    ``"chunked"`` attention waits for a later slice, ROADMAP queue 1)."""
+    ``"xla"``/``"pallas"`` are ``"torch"``/``"kernel"`` here)."""
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r}: the port takes "
                          f"{list(BACKENDS)}")
@@ -54,7 +56,8 @@ def _forward_only(name: str, *tensors: torch.Tensor) -> None:
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
         raise RuntimeError(
             f"{name}: the kernel is forward-only, as in the JAX package, "
-            "and takes no gradient; train on backend=\"torch\"")
+            "and takes no gradient; train on backend=\"torch\" or "
+            "\"chunked\"")
 
 
 def fill_aggregate(clients: torch.Tensor, masks: torch.Tensor,
@@ -250,8 +253,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """q: (B, S, H, D); k, v: (B, S, Kh, D), one dtype (float32 or
     bfloat16), contiguous -> (B, S, H, D) in q's dtype (kernel K3).
 
-    Takes what the TPU kernel takes: ``H % Kh == 0``, D <= 256, and S up
-    to 128 or a multiple of 128.  Forward-only."""
+    Takes ``H % Kh == 0`` and D <= 256, as the TPU kernel, and any S:
+    the TPU kernel asserts S up to 128 or a multiple of 128, where both
+    CUDA kernels mask a ragged last tile (zamba2's prompts of 1000
+    tokens).  Forward-only."""
     _forward_only("flash_attention", q, k, v)
     _common_device("flash_attention", q, k, v)
     if q.dtype not in (torch.float32, torch.bfloat16):
@@ -278,9 +283,6 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          f"axis, got H={h}, Kh={kh}, shape {tuple(q.shape)}")
     if d > 256:
         raise ValueError(f"flash_attention: head dim {d} > 256")
-    if s % min(128, s):
-        raise ValueError(f"flash_attention: sequence length {s} is neither "
-                         "<= 128 nor a multiple of 128")
     if window < 0:
         raise ValueError(f"flash_attention: window {window} < 0")
     if q.device.type == "cpu":

@@ -3,6 +3,8 @@
     python -m repro_torch.launch.prefill_trace --arch granite-moe-1b-a400m
     python -m repro_torch.launch.prefill_trace --arch qwen1.5-0.5b \\
         --backend torch
+    python -m repro_torch.launch.prefill_trace --arch zamba2-2.7b \\
+        --backend chunked
 
 The config runs at full width with seeded random weights, on 4 requests
 of 1024 tokens (the serving shape of ``chip_smoke.py``).  One prefill warms up; the next runs under
@@ -82,7 +84,8 @@ def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description="device-time breakdown of "
                                  "one prefill")
     ap.add_argument("--arch", default="granite-moe-1b-a400m")
-    ap.add_argument("--backend", default="kernel", help="kernel or torch")
+    ap.add_argument("--backend", default="kernel",
+                    help="kernel, torch or chunked")
     ap.add_argument("--window", type=int, default=0)
     ap.add_argument("--dtype", default="", help="override the config's")
     args = ap.parse_args(argv)

@@ -4,15 +4,20 @@ batched greedy generation driver.
 
     python -m repro_torch.launch.serve --arch qwen1.5-0.5b             # card
     python -m repro_torch.launch.serve --arch mamba2-780m --device cpu # CPU
+    python -m repro_torch.launch.serve --arch zamba2-2.7b --backend chunked
 
 ``--arch`` takes ``qwen1.5-0.5b``, ``chatglm3-6b`` and ``starcoder2-3b``
-(dense), ``mamba2-780m`` (SSM), ``granite-moe-1b-a400m`` (MoE) and, on
-the CPU only, ``deepseek-67b`` (dense) and ``llama4-scout-17b-a16e``
-(MoE with a shared expert): their full configs do not fit one card.
+(dense), ``mamba2-780m`` (SSM), ``granite-moe-1b-a400m`` (MoE),
+``zamba2-2.7b`` (hybrid) and, on the CPU only, ``deepseek-67b`` (dense)
+and ``llama4-scout-17b-a16e`` (MoE with a shared expert): their full
+configs do not fit one card.
 
 On the card the config runs at full width in its dtype; on the CPU
 (``--device cpu``) at its smoke size.  Weights are random, from a seeded
-``torch.Generator``.
+``torch.Generator``.  The CLI prefills the prompt on ``--backend``
+(``kernel``, ``torch`` or ``chunked``) and prints the next token it
+picks, then generates greedily (decode replays the prompt and launches
+no kernel, whatever the backend).
 """
 from __future__ import annotations
 
@@ -75,6 +80,8 @@ def main(argv=None) -> None:
     ap.add_argument("--prompt-len", type=int, default=16)
     ap.add_argument("--steps", type=int, default=16)
     ap.add_argument("--window", type=int, default=0)
+    ap.add_argument("--backend", default="kernel",
+                    help="the prefill's route: kernel, torch or chunked")
     ap.add_argument("--device", default="cuda",
                     help="cuda (full width) or cpu (smoke size)")
     args = ap.parse_args(argv)
@@ -92,12 +99,19 @@ def main(argv=None) -> None:
                                (args.batch, args.prompt_len),
                                generator=gen, device=device)
         t0 = time.perf_counter()
+        logits = make_prefill_step(cfg, window=args.window,
+                                   backend=args.backend)(
+            params, {"tokens": prompt})
+        first = torch.argmax(logits[:, -1, :], dim=-1).cpu()
+        t1 = time.perf_counter()
         toks = greedy_generate(params, cfg, prompt, args.steps,
                                window=args.window)
         toks = toks.cpu()
     print(f"{cfg.name} ({cfg.d_model} wide, {cfg.num_layers} layers, "
-          f"{cfg.dtype}) on {device}: generated {tuple(toks.shape)} tokens "
-          f"in {time.perf_counter() - t0:.3f} s")
+          f"{cfg.dtype}) on {device}: prefill of {tuple(prompt.shape)} "
+          f"tokens on the {args.backend} route in {t1 - t0:.3f} s, next "
+          f"tokens {first.tolist()}; generated {tuple(toks.shape)} tokens "
+          f"in {time.perf_counter() - t1:.3f} s")
     print(toks[0].tolist())
 
 

@@ -15,9 +15,15 @@ optimizer state is kept per leaf under ``tr.flat_params``'s dotted
 names.  Every leaf gets a gradient, as ``jax.grad`` gives one: a
 supernet branch the step's ``choice_key`` did not select gets zeros, so
 its moments decay, its weight decay applies and SGD moves it by its
-velocity, as in the JAX package.  Training takes ``backend="torch"``:
-the kernels (K3, K4, K5) are forward-only, and a gradient through the
-``"kernel"`` route raises at the first step.
+velocity, as in the JAX package.  Training takes ``backend="torch"``
+(the default) or ``"chunked"`` (attention over query blocks, each
+recomputed in the backward pass, so that no layer holds the whole
+(B, H, S, S) float32 score tensor): the kernels (K3, K4, K5) are
+forward-only, and a gradient through the ``"kernel"`` route raises at
+the first step.
+
+    python -m repro_torch.launch.train --arch zamba2-2.7b --device cpu \
+        --backend chunked
 """
 from __future__ import annotations
 
@@ -73,9 +79,9 @@ def make_train_step(cfg: ModelConfig, *, optimizer: str = "sgd",
     ``choice_key``: their gradients are summed in float32 (from zeros,
     in order) and scaled by ``1 / microbatch``, as is the loss.
     Activation memory falls by the same factor; the arithmetic is
-    unchanged.  ``backend`` is taken as the JAX package's is, but
-    ``"torch"`` is the only value that trains: every LM family reaches
-    K3, K4 or K5 on ``"kernel"``, and those refuse a gradient."""
+    unchanged.  ``backend`` is taken as the JAX package's is, but only
+    ``"torch"`` and ``"chunked"`` train: every LM family reaches K3, K4
+    or K5 on ``"kernel"``, and those refuse a gradient."""
     if optimizer not in OPTIMIZERS:
         raise ValueError(f"unknown optimizer {optimizer!r}: the port takes "
                          f"{list(OPTIMIZERS)}")
@@ -135,6 +141,7 @@ def main(argv=None) -> None:
     ap.add_argument("--seq", type=int, default=128)
     ap.add_argument("--lr", type=float, default=3e-3)
     ap.add_argument("--optimizer", default="adamw")
+    ap.add_argument("--backend", default="torch", help="torch or chunked")
     ap.add_argument("--device", default="cuda", help="cuda or cpu")
     args = ap.parse_args(argv)
 
@@ -147,10 +154,11 @@ def main(argv=None) -> None:
                             cfg)
     opt = init_opt(params, args.optimizer)
     step_fn = make_train_step(cfg, optimizer=args.optimizer, lr=args.lr,
-                              remat=False)
+                              backend=args.backend, remat=False)
     x, y = (torch.from_numpy(a).to(device) for a in make_lm_stream(
         0, args.steps * args.batch, args.seq, cfg.vocab_size))
-    print(f"{cfg.name} (smoke) on {device}, {args.optimizer}")
+    print(f"{cfg.name} (smoke) on {device}, {args.optimizer}, "
+          f"{args.backend} route")
     for i in range(args.steps):
         rows = slice(i * args.batch, (i + 1) * args.batch)
         params, opt, loss = step_fn(params, opt, {"tokens": x[rows],

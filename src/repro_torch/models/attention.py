@@ -5,11 +5,14 @@ QKV bias, causal or sliding-window masks, single-token decode against a
 (ring-buffered) KV cache, and a per-head mask for the supernet's lite
 branch, with the JAX package's names and layouts.
 
-The softmax(QKᵀ)V core of a full sequence takes one of two routes:
+The softmax(QKᵀ)V core of a full sequence takes one of three routes:
 ``backend="kernel"`` (the default) is ``kernels.ops.flash_attention``
-(kernel K3 on a CUDA tensor, its plain version on the CPU) and
+(kernel K3 on a CUDA tensor, its plain version on the CPU),
 ``backend="torch"`` is the einsum path ``_attend`` (the JAX package's
-``"xla"``).  Decode always takes ``_attend``, as in the JAX package.
+``"xla"``) and ``backend="chunked"`` is ``_attend_chunked``, the same
+einsums over blocks of queries, each recomputed in the backward pass, so
+that only a chunk x T score tile is live.  Decode always takes
+``_attend``, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -17,6 +20,8 @@ import math
 from typing import Dict, Tuple
 
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels import ops as kops
 from repro_torch.models.layers import apply_rope, dense, dense_init
@@ -47,16 +52,70 @@ def _attend(q, k, v, mask, head_mask=None):
     float32; K/V repeated to the H query heads; ``head_mask`` (H,)
     optionally zeroes heads' outputs (the supernet's lite branch)."""
     b, s, h, d = q.shape
-    kh = k.shape[2]
-    if kh != h:
-        k = torch.repeat_interleave(k, h // kh, dim=2)
-        v = torch.repeat_interleave(v, h // kh, dim=2)
+    k, v = _repeat_kv(k, v, h)
     scores = torch.einsum("bshd,bthd->bhst", q.float(),
                           k.float()) / math.sqrt(d)
     scores = torch.where(mask[:, None, :, :], scores,
                          torch.full_like(scores, NEG_INF))
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bhst,bthd->bshd", probs, v.float())
+    if head_mask is not None:
+        out = out * head_mask.to(out.dtype)[None, None, :, None]
+    return out.reshape(b, s, h * d).to(v.dtype)
+
+
+def _repeat_kv(k, v, h):
+    kh = k.shape[2]
+    if kh != h:
+        k = torch.repeat_interleave(k, h // kh, dim=2)
+        v = torch.repeat_interleave(v, h // kh, dim=2)
+    return k, v
+
+
+def _attend_chunked(q, k, v, *, causal=True, window=0, chunk=512,
+                    head_mask=None):
+    """``_attend`` over blocks of ``chunk`` queries, so that only a
+    (chunk x T) float32 score tile is live at once; each block runs under
+    non-reentrant ``torch.utils.checkpoint`` when grad mode is on, so the
+    backward pass recomputes its tile (the JAX package's
+    ``jax.checkpoint``).  q: (B, S, H, D); k, v: (B, T, Kh, D) -> (B, S,
+    H*D) in v's dtype.  Scores of the model-dtype q and k in float32,
+    softmax in float32, the probabilities rounded to v's dtype before the
+    product with v, accumulated in float32 (the JAX package's
+    ``preferred_element_type``).  q is zero-padded to whole blocks and
+    the padded rows dropped.  Query i sits at position i + T - S, also
+    in a padded last block (the JAX package shifts every query by the
+    padding there, ROADMAP queue 3)."""
+    b, s, h, d = q.shape
+    k, v = _repeat_kv(k, v, h)
+    chunk = min(chunk, s)
+    pad = (-s) % chunk
+    if pad:
+        q = F.pad(q, (0, 0, 0, 0, 0, pad))
+    t_len = k.shape[1]
+    kf, vf = k.float(), v.float()
+    k_pos = torch.arange(t_len, device=q.device)
+    scale = 1.0 / math.sqrt(d)
+
+    def block(qc, start):
+        q_pos = start + torch.arange(chunk, device=q.device) + (t_len - s)
+        m = torch.ones((chunk, t_len), dtype=torch.bool, device=q.device)
+        if causal:
+            m = m & (k_pos[None, :] <= q_pos[:, None])
+        if window:
+            m = m & (k_pos[None, :] > q_pos[:, None] - window)
+        sc = torch.einsum("bchd,bthd->bhct", qc.float(), kf) * scale
+        sc = torch.where(m[None, None], sc, torch.full_like(sc, NEG_INF))
+        p = torch.softmax(sc, dim=-1)
+        return torch.einsum("bhct,bthd->bchd", p.to(v.dtype).float(), vf)
+
+    grad = torch.is_grad_enabled()
+    outs = []
+    for start in range(0, s + pad, chunk):
+        qc = q[:, start:start + chunk]
+        outs.append(checkpoint(block, qc, start, use_reentrant=False)
+                    if grad else block(qc, start))
+    out = torch.cat(outs, dim=1)[:, :s]
     if head_mask is not None:
         out = out * head_mask.to(out.dtype)[None, None, :, None]
     return out.reshape(b, s, h * d).to(v.dtype)
@@ -91,6 +150,8 @@ def self_attention(p, x, positions, *, num_heads, num_kv_heads, head_dim,
         if head_mask is not None:
             out = out * head_mask.to(out.dtype)[None, None, :, None]
         out = out.reshape(b, s, num_heads * head_dim)
+    elif backend == "chunked":
+        out = _attend_chunked(q, k, v, window=window, head_mask=head_mask)
     else:
         out = _attend(q, k, v, causal_mask(s, window=window,
                                            device=x.device), head_mask)

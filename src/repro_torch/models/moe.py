@@ -9,8 +9,8 @@ on it and combine the outputs with the renormalised gates.  The dispatch
 equals the JAX package's exactly (the same stable order, the same
 slots).  ``backend="kernel"`` runs the expert FFN's three products on
 the grouped GEMM kernel K5 (``kernels.ops.expert_ffn``; its plain
-version on the CPU), ``"torch"`` on ``torch.einsum``; routing is the
-same code on both.  The supernet's bottleneck branch (``ff_mask``)
+version on the CPU), ``"torch"`` and ``"chunked"`` (an attention route)
+on ``torch.einsum``; routing is the same code on all.  The supernet's bottleneck branch (``ff_mask``)
 narrows the expert hidden dim by a mask between the products; there the
 JAX package runs its three einsums whatever the backend, and so does the
 port: that branch launches no K5 on either route.

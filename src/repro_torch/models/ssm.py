@@ -8,7 +8,9 @@ scan takes one of two routes: ``backend="kernel"`` (the default) is
 ``kernels.ops.ssd_scan`` (kernel K4 on a CUDA tensor, its plain version
 on the CPU) and ``backend="torch"`` is the chunked einsum path below (the
 JAX package's ``"xla"``), written as pairwise products so that no
-(b, c, q, k, h, p) intermediate appears.  Projections are separate dense
+(b, c, q, k, h, p) intermediate appears.  ``backend="chunked"`` (an
+attention route) takes the einsum path too, as the JAX package's scan
+takes its own for every route but ``"pallas"``.  Projections are separate dense
 layers (z / x / B / C / dt), as in the JAX package.
 
 Decode is the O(1) recurrent update: S <- exp(dt A) S + dt B ⊗ x.
@@ -109,7 +111,7 @@ def ssd_chunked(x, dt, a_head, b_mat, c_mat, chunk=CHUNK,
     bm = b_mat.reshape(bsz, nc, chunk, n).float()
     cm = c_mat.reshape(bsz, nc, chunk, n).float()
 
-    if backend == "kernel":
+    if backend == "kernel":       # "torch" and "chunked": the einsums
         y, final = kops.ssd_scan(xs, a, bm, cm, initial_state)
     else:
         y, final = ssd_chunked_torch(xs, a, bm, cm, initial_state)

@@ -1,14 +1,21 @@
-"""Dense, MoE and SSM language-model stacks: init, full-sequence forward,
-serving (cache init, prefill by replay, single-token decode), and the
-paper's supernet over them.
+"""Dense, MoE, SSM and hybrid language-model stacks: init, full-sequence
+forward, serving (cache init, prefill by replay, single-token decode),
+and the paper's supernet over them.
 
 Parameters are nested dicts of tensors with the JAX package's names and
 per-layer layouts; where the JAX package stacks every per-layer leaf on a
 leading ``L`` axis and scans over it, the port keeps ``params["layers"]``
 as a list of per-layer dicts and loops over it in Python
-(``convert.lm_params_from_reference`` carries weights across).  Only the
-``dense``, ``moe`` and ``ssm`` families are ported: the others raise,
-naming their ROADMAP item.
+(``convert.lm_params_from_reference`` carries weights across).  The
+``dense``, ``moe``, ``ssm`` and ``hybrid`` families are ported; VLM and
+audio raise, naming their ROADMAP item.
+
+The hybrid (zamba2) is a stack of SSM layers with one dense
+attention+MLP block, ``params["shared"]``, applied after every
+``attn_every``-th layer (0-based layer l with l % attn_every ==
+attn_every - 1), also after a supernet layer that its key makes an
+identity; in decode each application point keeps its own KV cache
+(``cache["shared"][l // attn_every]``).
 
 The supernet (``cfg.supernet``) follows the JAX package's choice blocks
 adapted to transformers: per layer, 4 branches
@@ -29,6 +36,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops as kops
@@ -44,21 +52,20 @@ Params = Dict[str, Any]
 N_BRANCHES = 3      # weighted branches per supernet layer (0 = identity)
 
 _NOT_PORTED = {
-    "hybrid": "ROADMAP queue 1: the hybrid family (zamba2)",
     "vlm": "ROADMAP queue 1: VLM and audio",
     "audio": "ROADMAP queue 1: VLM and audio",
 }
 
 
 def _layer_kind(cfg: ModelConfig) -> str:
-    if cfg.family not in ("dense", "moe", "ssm", *_NOT_PORTED):
+    if cfg.family not in ("dense", "moe", "ssm", "hybrid", *_NOT_PORTED):
         raise ValueError(f"{cfg.name}: not a language model "
                          f"(family {cfg.family!r})")
     if cfg.family in _NOT_PORTED:
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} is not yet ported to "
             f"repro_torch ({_NOT_PORTED[cfg.family]})")
-    return cfg.family
+    return "ssm" if cfg.family == "hybrid" else cfg.family
 
 
 def _serving_kind(cfg: ModelConfig) -> str:
@@ -109,7 +116,8 @@ def block_init(gen: torch.Generator, cfg: ModelConfig, kind: str) -> Params:
 def init_params(gen: torch.Generator, cfg: ModelConfig) -> Params:
     """Random weights from ``gen``, on its device, in the config's dtype
     (the JAX package's init distributions; not its random bits).  A
-    supernet's layer is a list of ``N_BRANCHES`` blocks."""
+    supernet's layer is a list of ``N_BRANCHES`` blocks; the hybrid's
+    shared block is one dense block, a supernet's too."""
     kind = _layer_kind(cfg)
 
     def layer():
@@ -117,12 +125,15 @@ def init_params(gen: torch.Generator, cfg: ModelConfig) -> Params:
             return [block_init(gen, cfg, kind) for _ in range(N_BRANCHES)]
         return block_init(gen, cfg, kind)
 
-    return {
+    params = {
         "embed": embedding_init(gen, cfg.vocab_size, cfg.d_model,
                                 cfg.torch_dtype),
         "final_ln": rmsnorm_init(cfg.d_model, cfg.torch_dtype, gen.device),
         "layers": [layer() for _ in range(cfg.num_layers)],
     }
+    if cfg.family == "hybrid":
+        params["shared"] = block_init(gen, cfg, "dense")
+    return params
 
 
 def _flatten_into(out: Dict[str, torch.Tensor], node, prefix: str) -> None:
@@ -200,6 +211,27 @@ def _block_fwd(p_l, h, positions, cfg: ModelConfig, kind: str, window: int,
         head_mask=masks["ssm_head"] if lite else None, backend=backend), None
 
 
+def _shared_fires(cfg: ModelConfig, li: int) -> bool:
+    """Whether the hybrid's shared block follows layer ``li``."""
+    return (cfg.family == "hybrid"
+            and li % cfg.attn_every == cfg.attn_every - 1)
+
+
+def _layer_fwd(p_l, h, positions, cfg: ModelConfig, kind: str, window: int,
+               backend: str, branch: int, masks, shared):
+    """Layer ``p_l`` on its branch (0: the identity), then the shared
+    block ``shared`` where it is not None -> (h, the MoE aux loss or
+    None)."""
+    a = None
+    if branch:
+        h, a = _block_fwd(p_l, h, positions, cfg, kind, window, backend,
+                          branch, masks)
+    if shared is not None:
+        h = _block_fwd(shared, h, positions, cfg, "dense", window,
+                       backend)[0]
+    return h, a
+
+
 def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
             choice_key=None, window: int = 0, backend: str = "kernel",
             remat: bool = False, return_hidden: bool = False,
@@ -213,15 +245,17 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
     expert FFN.  A supernet needs ``choice_key``, one host int per layer:
     layer l runs branch ``choice_key[l]`` (0 skips it), from
     ``params["layers"][l][choice_key[l] - 1]``; only the selected
-    branches are read (the others may be None).
+    branches are read (the others may be None).  The hybrid's shared
+    block runs after its layers whatever their branch, unmasked.
 
-    ``remat`` runs each layer under non-reentrant
-    ``torch.utils.checkpoint``, so the backward pass recomputes its
-    activations (the JAX package's ``jax.checkpoint`` of its scan body),
-    on the plain stack and on a supernet's selected branches alike.  The
-    JAX package's ``unroll`` (an option of its layer scan) has no
-    counterpart in this Python loop, and its ``prefix`` belongs to the
-    VLM and audio families, which are not ported."""
+    ``remat`` runs each layer, with the shared block where it follows
+    the layer, under non-reentrant ``torch.utils.checkpoint``, so the
+    backward pass recomputes its activations (the JAX package's
+    ``jax.checkpoint`` of its scan body), on the plain stack and on a
+    supernet's selected branches alike.  The JAX package's ``unroll``
+    (an option of its layer scan) has no counterpart in this Python
+    loop, and its ``prefix`` belongs to the VLM and audio families, which
+    are not ported."""
     kind = _layer_kind(cfg)
     kops.check_backend(backend)
     b, s = tokens.shape
@@ -239,23 +273,24 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
             raise ValueError(f"{cfg.name}: choice key {key}: need "
                              f"{cfg.num_layers} branches in 0..{N_BRANCHES}")
         masks = branch_masks(cfg, h.device)
-        layers = [(p_l[k - 1], k) for p_l, k in zip(params["layers"], key)
-                  if k]
+        layers = [(p_l[k - 1] if k else None, k)
+                  for p_l, k in zip(params["layers"], key)]
     else:
         if choice_key is not None:
             raise ValueError(f"{cfg.name}: choice_key given to a model that "
                              "is not a supernet")
         masks = None
         layers = [(p_l, 1) for p_l in params["layers"]]
-    block = _block_fwd
+    layer = _layer_fwd
     if remat:
-        from torch.utils.checkpoint import checkpoint
-
-        def block(*args):
-            return checkpoint(_block_fwd, *args, use_reentrant=False)
-    for p_l, branch in layers:
-        h, a = block(p_l, h, positions, cfg, kind, window, backend,
-                     branch, masks)
+        def layer(*args):
+            return checkpoint(_layer_fwd, *args, use_reentrant=False)
+    for li, (p_l, branch) in enumerate(layers):
+        shared = params["shared"] if _shared_fires(cfg, li) else None
+        if not branch and shared is None:
+            continue
+        h, a = layer(p_l, h, positions, cfg, kind, window, backend,
+                     branch, masks, shared)
         if a is not None:
             aux = aux + a
     h = rmsnorm(params["final_ln"], h)
@@ -266,17 +301,27 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
 def init_cache(params: Params, cfg: ModelConfig, batch: int,
                cache_len: int) -> Params:
     """An empty decode cache: ``t`` (the next position, a host int) and
-    one KV ring (dense, moe) or conv/state record (ssm) per layer."""
+    one KV ring (dense, moe) or conv/state record (ssm, hybrid) per
+    layer; the hybrid's also one KV ring per application point of its
+    shared block (``"shared"``)."""
     kind = _serving_kind(cfg)
     dt = cfg.torch_dtype
     dev = params["embed"]["table"].device
+
+    def kv():
+        return attn.init_cache(batch, cfg.num_kv_heads, cfg.hd, cache_len,
+                               dt, dev)
+
     if kind in ("dense", "moe"):
-        layers = [attn.init_cache(batch, cfg.num_kv_heads, cfg.hd, cache_len,
-                                  dt, dev) for _ in range(cfg.num_layers)]
+        layers = [kv() for _ in range(cfg.num_layers)]
     else:
         layers = [ssm_mod.init_ssm_cache(batch, cfg, dt, dev)
                   for _ in range(cfg.num_layers)]
-    return {"t": 0, "layers": layers}
+    cache = {"t": 0, "layers": layers}
+    if cfg.family == "hybrid":
+        cache["shared"] = [kv() for _ in
+                           range(cfg.num_layers // cfg.attn_every)]
+    return cache
 
 
 def prefill_cache(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
@@ -296,10 +341,10 @@ def decode_step(params: Params, cfg: ModelConfig, token: torch.Tensor,
                 cache: Params, *, window: int = 0
                 ) -> Tuple[torch.Tensor, Params]:
     """One decode step.  token: (B, 1) -> (logits (B, 1, V), cache).  The
-    cache is updated in place (KV slots, per-layer records, ``t``) and
-    returned.  No kernel launches: attention reads the cache with
-    einsums, and the MoE takes its torch route (routing over the B
-    tokens of the step)."""
+    cache is updated in place (KV slots, per-layer records, the hybrid's
+    per application point, ``t``) and returned.  No kernel launches:
+    attention reads the cache with einsums, and the MoE takes its torch
+    route (routing over the B tokens of the step)."""
     kind = _serving_kind(cfg)
     t = cache["t"]
     h = embed(params["embed"], token)
@@ -320,6 +365,14 @@ def decode_step(params: Params, cfg: ModelConfig, token: torch.Tensor,
                                              rmsnorm(p_l["ln"], h), c_l, cfg)
             h = h + y
         cache["layers"][li] = c_l
+        if _shared_fires(cfg, li):
+            sh = params["shared"]
+            y, _ = attn.decode_self_attention(
+                sh["attn"], rmsnorm(sh["ln1"], h),
+                cache["shared"][li // cfg.attn_every], t,
+                **_attn_kw(cfg, window))
+            h = h + y
+            h = h + mlp(sh["mlp"], rmsnorm(sh["ln2"], h))
     h = rmsnorm(params["final_ln"], h)
     cache["t"] = t + 1
     return unembed(params["embed"], h), cache

@@ -32,7 +32,8 @@ from repro_torch.models import transformer as tr  # noqa: E402
 
 BATCH, SEQ = 2, 64
 ARCHS = ["qwen1.5-0.5b", "chatglm3-6b", "starcoder2-3b", "deepseek-67b",
-         "mamba2-780m", "granite-moe-1b-a400m", "llama4-scout-17b-a16e"]
+         "mamba2-780m", "granite-moe-1b-a400m", "llama4-scout-17b-a16e",
+         "zamba2-2.7b"]
 TOL = 1e-4
 
 
@@ -95,6 +96,7 @@ def test_full_config_matches_assignment(arch_setup):
         "granite-moe-1b-a400m": (24, 1024, 16, 8, 512, 49155),
         "qwen1.5-0.5b": (24, 1024, 16, 16, 2816, 151936),
         "mamba2-780m": (48, 1536, 0, 0, 0, 50280),
+        "zamba2-2.7b": (54, 2560, 32, 32, 10240, 32000),
     }[arch]
     got = (full.num_layers, full.d_model, full.num_heads, full.num_kv_heads,
            full.d_ff, full.vocab_size)
@@ -114,6 +116,9 @@ def test_moe_ssm_and_attention_extras():
     starcoder = get_config("starcoder2-3b")
     assert (starcoder.sliding_window, starcoder.hd) == (4096, 128)
     assert get_config("deepseek-67b").hd == 128
+    zamba2 = get_config("zamba2-2.7b")
+    assert (zamba2.attn_every, zamba2.hd, zamba2.ssm_head_dim,
+            zamba2.ssm_state) == (6, 80, 80, 64)
 
 
 @pytest.mark.parametrize("arch", ["chatglm3-6b", "starcoder2-3b"])

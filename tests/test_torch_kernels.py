@@ -157,6 +157,31 @@ def test_plain_flash_attention_matches_reference(jax_ref, dtype, b, s, h,
                                    rtol=tol, atol=5 * tol)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,s,h,kh,d", [(1, 200, 4, 2, 64),
+                                         (1, 1000, 2, 2, 80)])
+def test_flash_wrapper_takes_a_ragged_last_tile(jax_ref, dtype, b, s, h, kh,
+                                                d):
+    """S past 128 and no multiple of it (zamba2's prompts of 1000
+    tokens), which the TPU kernel asserts against and the CUDA kernels
+    mask: the wrapper's plain version against the JAX package's
+    oracle."""
+    _, _, jref = jax_ref
+    import jax.numpy as jnp
+    arrs = flash_np(b, s, h, kh, d, seed=s)
+    ours = ops.flash_attention(
+        *(torch.from_numpy(a).to(getattr(torch, dtype)) for a in arrs),
+        window=64)
+    assert ours.shape == (b, s, h, d)
+    assert ops.LAUNCHES["flash_attention"] == 0
+    tol = FLASH_TOL[dtype]
+    exp = jref.flash_attention(*(jnp.asarray(a, getattr(jnp, dtype))
+                                 for a in arrs), window=64)
+    np.testing.assert_allclose(ours.float().numpy(),
+                               np.asarray(exp, np.float32),
+                               rtol=tol, atol=5 * tol)
+
+
 @pytest.mark.parametrize("b,nc,q,h,p,n", SSD_SHAPES)
 def test_plain_ssd_scan_matches_reference(jax_ref, b, nc, q, h, p, n):
     _, jops, jref = jax_ref
@@ -414,8 +439,9 @@ def test_flash_wrapper_rejects_what_the_kernel_does_not_take(case):
             "mixed_dtype": (q, k.bfloat16(), v),
             "heads": (torch.zeros(1, 256, 4, 64), torch.zeros(1, 256, 3, 64),
                       torch.zeros(1, 256, 3, 64)),
-            "seq_len": (q[:, :200].contiguous(), k[:, :200].contiguous(),
-                        v[:, :200].contiguous()),
+            # an empty sequence (a ragged last tile is taken, below)
+            "seq_len": (q[:, :0].contiguous(), k[:, :0].contiguous(),
+                        v[:, :0].contiguous()),
             "head_dim": (torch.zeros(1, 128, 2, 264),
                          torch.zeros(1, 128, 2, 264),
                          torch.zeros(1, 128, 2, 264)),
@@ -933,7 +959,9 @@ def test_cuda_int8_tree_kernels_repeat_bit_for_bit(cuda):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("b,s,h,kh,d", FLASH_SHAPES + [
     (2, 100, 4, 2, 64),          # one ragged tile
+    (1, 300, 4, 2, 64),          # a ragged last tile past 128
     (1, 256, 4, 4, 80),          # zamba2's head dim
+    (2, 1000, 4, 4, 80),         # zamba2's prompt length
     (1, 128, 2, 1, 256),         # the largest head dim
     (4, 1024, 16, 16, 64),       # qwen1.5-0.5b's prefill
     (4, 1024, 16, 8, 64),        # granite-moe-1b-a400m's prefill (GQA)

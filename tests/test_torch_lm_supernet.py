@@ -321,7 +321,7 @@ def test_choice_key_is_checked():
         tr.decode_step(params, cfg, toks[:, :1], {"t": 0, "layers": []})
 
 
-@pytest.mark.parametrize("family", ["hybrid", "vlm", "audio"])
+@pytest.mark.parametrize("family", ["vlm", "audio"])
 def test_unported_supernet_families_raise_naming_their_roadmap_item(family):
     cfg = get_config("qwen1.5-0.5b", smoke=True).replace(supernet=True,
                                                          family=family)

@@ -1,9 +1,10 @@
 """repro_torch's LM training launcher against the JAX package on the CPU:
 the optimizers (AdamW, ``cosine_decay``), ``fused_cross_entropy``,
 ``make_train_step`` on qwen1.5-0.5b's smoke config in float32 (SGD and
-AdamW, microbatches 1 and 2, remat on and off, and the loss over the
-full logits, ``fused_ce=False``), the qwen supernet with a
-fresh key each step, and the forward-only kernel routes.
+AdamW, microbatches 1 and 2, remat on and off, the loss over the
+full logits, ``fused_ce=False``, and the ``chunked`` attention route),
+the qwen supernet with a fresh key each step, and the forward-only
+kernel routes.
 
 Weights come from the port's init, carried to the JAX package through
 ``convert`` (the JAX package's own init of the supernet takes seconds);
@@ -69,7 +70,7 @@ def batches(cfg, n, seed=5):
                   for _ in range(2)) for _ in range(n)]
 
 
-def jax_run(optimizer, microbatch, keys=None, fused_ce=True):
+def jax_run(optimizer, microbatch, keys=None, fused_ce=True, backend="xla"):
     """The JAX package's steps from the port's init -> (init as numpy,
     in the JAX package's layout; [(loss, params as numpy)] per step)."""
     cfg, jcfg = get_config(ARCH, smoke=True), ref_get_config(ARCH, smoke=True)
@@ -81,7 +82,8 @@ def jax_run(optimizer, microbatch, keys=None, fused_ce=True):
     step = jax.jit(jtrain.make_train_step(jcfg, optimizer=optimizer,
                                           lr=LR[optimizer],
                                           microbatch=microbatch,
-                                          fused_ce=fused_ce))
+                                          fused_ce=fused_ce,
+                                          backend=backend))
     opt = jtrain.init_opt(params, optimizer)
     out = []
     for i, (x, y) in enumerate(batches(jcfg, len(keys or ()) or STEPS)):
@@ -101,17 +103,21 @@ def reference():
     # the loss over the full logits (``fused_ce=False``)
     runs.update({(o, "logits"): jax_run(o, 1, fused_ce=False)
                  for o in ("sgd", "adamw")})
+    # the chunked route: 16 tokens, one block of queries, where the JAX
+    # package's chunked route computes the right mask
+    runs["chunked"] = jax_run("sgd", 1, backend="chunked")
     return runs
 
 
-def port_run(init, optimizer, microbatch, remat, keys=None, fused_ce=True):
+def port_run(init, optimizer, microbatch, remat, keys=None, fused_ce=True,
+             backend="torch"):
     cfg = get_config(ARCH, smoke=True)
     if keys is not None:
         cfg = cfg.replace(supernet=True)
     params = lm_params_from_reference(cfg, init)
     step = train.make_train_step(cfg, optimizer=optimizer, lr=LR[optimizer],
                                  microbatch=microbatch, remat=remat,
-                                 fused_ce=fused_ce)
+                                 fused_ce=fused_ce, backend=backend)
     opt = train.init_opt(params, optimizer)
     out = []
     for i, (x, y) in enumerate(batches(cfg, len(keys or ()) or STEPS)):
@@ -285,6 +291,20 @@ def test_train_step_on_full_logits_matches_reference(reference, optimizer):
                 optimizer)
 
 
+@pytest.mark.parametrize("remat", [True, False], ids=["remat", "no_remat"])
+def test_train_step_on_the_chunked_route_matches_reference(reference, remat):
+    """SGD steps with attention over blocks of queries, each recomputed
+    in the backward pass (nested in the layer's own checkpoint under
+    remat), against the JAX package's ``chunked`` route; no kernel
+    launches and the gradient flows."""
+    init, ref = reference["chunked"]
+    for k in ops.LAUNCHES:
+        ops.LAUNCHES[k] = 0
+    check_steps(port_run(init, "sgd", 1, remat, backend="chunked"), ref,
+                "sgd")
+    assert all(n == 0 for n in ops.LAUNCHES.values())
+
+
 def test_supernet_steps_with_a_key_each_match_reference(reference):
     """Every leaf moves as in the JAX package, a branch the step's key
     left out included; and the same steps with an unselected branch
@@ -385,6 +405,14 @@ def test_train_main_runs_on_the_cpu(capsys):
                 "--seq", "16", "--optimizer", "sgd", "--lr", "0.1"])
     out = capsys.readouterr().out
     assert "on cpu, sgd" in out and "step    2 loss" in out
+
+
+def test_train_main_takes_the_hybrid_on_the_chunked_route(capsys):
+    train.main(["--arch", "zamba2-2.7b", "--device", "cpu", "--steps", "2",
+                "--batch", "2", "--seq", "16", "--backend", "chunked"])
+    out = capsys.readouterr().out
+    assert "zamba2-2.7b (smoke) on cpu, adamw, chunked route" in out
+    assert "step    1 loss" in out
 
 
 @pytest.mark.parametrize("supernet", [False, True])
