@@ -61,8 +61,10 @@ Phases, each fatal on failure:
    64), granite-moe-1b-a400m's (4, 1024, 16, 8, 64) and the dense
    shelf's at head dim 128: chatglm3-6b's (4, 1024, 32, 2, 128),
    starcoder2-3b's (4, 1024, 24, 2, 128) and deepseek-67b's (4, 1024,
-   64, 8, 128), and zamba2-2.7b's shared block at head dim 80 (4, 1000,
-   32, 32, 80),
+   64, 8, 128), zamba2-2.7b's shared block at head dim 80 (4, 1000,
+   32, 32, 80), internvl2-1b's (4, 1280, 14, 2, 64) (256 patches and
+   1024 tokens, GQA 7) and whisper-large-v3's encoder (4, 1500, 20, 20,
+   64) (a ragged last tile of 92 keys) and decoder (4, 448, 20, 20, 64),
    each causal, with window 64 and 256, and bidirectional (rtol 2e-5 /
    atol 1e-4 in float32, 2^-7 / 1e-3 in bfloat16: one rounding of the
    output), each call on the kernel its dtype and head dim select (bf16
@@ -90,8 +92,9 @@ Phases, each fatal on failure:
    shape; each timed at its serving shape beside its bound and its plain
    version, K3 also beside ``scaled_dot_product_attention`` (at qwen's
    and granite's shapes and at window 256, at the dense shelf's three
-   prefills, at starcoder2's 1 x 8192 tokens at window 4096, and at
-   zamba2's), K4 beside the torch route's
+   prefills, at starcoder2's 1 x 8192 tokens at window 4096, at
+   zamba2's, at internvl2's and whisper's decoder's, causal, and at
+   whisper's encoder's, bidirectional), K4 beside the torch route's
    chunked scan (at mamba2's and zamba2's shapes), and K5 beside ``torch.bmm`` (at granite's wi and wo
    shapes);
 10. the serving path at full width, bf16, seeded random weights on the
@@ -103,13 +106,18 @@ Phases, each fatal on failure:
    also one request of 8192 tokens at its sliding window of 4096) and
    deepseek-67b at full width but 8 of its 95 layers (6.38 B
    parameters: the whole model, about 134 GB in bf16, does not fit one
-   card), and the hybrid zamba2-2.7b (54 SSM layers at P = 80 and one
+   card), the hybrid zamba2-2.7b (54 SSM layers at P = 80 and one
    shared attention block at head dim 80 after every 6th; 1000-token
-   prompt),
+   prompt), the VLM internvl2-1b (24 layers, GQA 7; 1024 tokens after
+   256 patches through its projector) and the audio model
+   whisper-large-v3 (32 bidirectional encoder layers over 1500 frames,
+   32 decoder layers with cross attention; 448 tokens), the prefixes
+   normal x 0.1 from the seed,
    ``make_prefill_step`` on the kernel route (launch counts zeroed
    before and read after: per layer one K3, one K4, or one K3 and three
-   K5, and one K3 per application point of zamba2's shared block: 54 K4
-   and 9 K3; every K3 and K5 of a bf16 prefill on its tensor-core kernel, of a
+   K5, one K3 per application point of zamba2's shared block: 54 K4
+   and 9 K3, and one per whisper encoder layer: 64 K3, 32 of them
+   bidirectional; every K3 and K5 of a bf16 prefill on its tensor-core kernel, of a
    float32 one on its CUDA-core kernel; one launch of each of K4's stage
    kernels per K4 call) against the torch route, within
    LOGIT_TOL of the logits' largest
@@ -122,17 +130,22 @@ Phases, each fatal on failure:
    decisions that differ between the two routes' prefills, summed over
    the layers;
    ``greedy_generate`` of 16 tokens on a 64-token prompt with no kernel
-   launch (decode replays, as the JAX package's ``prefill_cache``);
+   launch (decode replays, as the JAX package's ``prefill_cache``) but
+   whisper's one encoder pass (32 K3);
    prefill time, decode tokens/s and peak memory; the ``chunked``
    route (attention over blocks of 512 queries, plain PyTorch) against
    the torch route with no kernel launch, within 15 % (bf16) / 1e-5
    (float32) of the largest logit, with each route's time and peak
-   memory, for qwen1.5-0.5b's and zamba2-2.7b's prefills in bf16 and
-   float32 and starcoder2-3b's 1 x 8192 tokens at window 4096; and, at
-   smoke size in float32 (zamba2 at 4 layers: two application points),
-   prefill logits against the decode replay within 1e-3 (for
-   the MoE at a capacity that cannot drop a choice: a prefill that
-   drops differs from the replay, in the JAX package too);
+   memory, for qwen1.5-0.5b's, zamba2-2.7b's, internvl2-1b's and
+   whisper-large-v3's prefills in bf16 and float32 and starcoder2-3b's
+   1 x 8192 tokens at window 4096; and, at smoke size in float32
+   (zamba2 at 4 layers: two application points), prefill logits
+   against the decode replay within 1e-3 (for the MoE at a capacity
+   that cannot drop a choice: a prefill that drops differs from the
+   replay, in the JAX package too; whisper's replay from the encoder's
+   output; internvl2's replay, which never sees the patches as the JAX
+   package's does not, against the text-only prefill of its weights,
+   its gap to the VLM prefill logged);
 11. the batched backend: the phase-5 run on ``backend="vmap"``, each
    with its launch counts zeroed before and read after, held against
    phase 5's ``loop`` run (equal keys and CommStats, masters within
@@ -168,15 +181,17 @@ Phases, each fatal on failure:
    through ``save_pytree`` and ``restore_latest`` onto a CUDA template,
    bit for bit with one key per leaf;
 13. the LM supernet NAS path: (a) the qwen1.5-0.5b, mamba2-780m,
-   granite-moe-1b-a400m and zamba2-2.7b supernets at full width, seeded
-   random weights on the card, 4 requests of 256 tokens,
+   granite-moe-1b-a400m, zamba2-2.7b and internvl2-1b (after its 256
+   patches) supernets at full width, seeded random weights on the card,
+   4 requests of 256 tokens,
    ``forward(..., choice_key=)`` on the kernel route (launch counts
    zeroed before and read after: one K3 or K4 call per layer that is
    not an identity, three K5 per MoE layer on the full or lite branch
    and none on the bottleneck, and zamba2's shared block 9 K3 on every
    key, the all-identity one too) against
    the torch route within LOGIT_TOL, on the all-1, all-2, all-3, all-0
-   and mixed keys in bf16 and on the mixed key in float32; (b) the
+   and mixed keys in bf16 and on the mixed key in float32, and an audio
+   supernet's forward raising, as the JAX package's; (b) the
    qwen1.5-0.5b supernet's search (1,080,574,976 parameters, bf16; 4
    ``make_lm_stream`` clients, population 4, 2 generations) on the
    ``loop`` backend with K1, its launches asserted, one generation-1
@@ -197,8 +212,10 @@ Phases, each fatal on failure:
    table's gradient within 1e-5 of its largest, h's within 2e-4 of a
    float64 recomputation of 512 rows, a lower peak); (c) a train step on
    ``backend="kernel"`` raises (the kernels are forward-only), with no
-   launch; (d) at smoke size in float32 one SGD and one AdamW step, and
-   3 SGD steps of the supernet with a key each, against the CPU (within
+   launch; (d) at smoke size in float32 one SGD and one AdamW step, 3
+   SGD steps of the supernet with a key each, and one SGD step each of
+   internvl2-1b and whisper-large-v3 with their prefixes, against the
+   CPU (within
    1e-5; AdamW's parameters but for noise-gradient entries); (e)
    ``launch.train`` and the ``train_lm`` example (plain and
    ``--supernet``) at their defaults; (f) (a) again on the ``chunked``
@@ -1202,21 +1219,32 @@ MAMBA_SSD = (4, 8, 128, 48, 64, 128)    # B, NC, Q, H, P, N of a mamba2
 # P = 80: two P tiles, the second 16 wide; N 64)
 ZAMBA_ATTN = (4, 1000, 32, 32, 80)
 ZAMBA_SSD = (4, 8, 128, 64, 80, 64)
+# internvl2-1b's prefill: 256 patches before 1024 tokens, 14 query heads
+# on 2 KV heads (GQA 7, the first odd group size on a model); whisper's
+# encoder, bidirectional over its 1500 frames (a ragged last tile of 92
+# keys), and its decoder over its context of 448 tokens, 20 heads, no GQA
+INTERNVL_ATTN = (4, 1280, 14, 2, 64)
+WHISPER_ENC = (4, 1500, 20, 20, 64)
+WHISPER_DEC = (4, 448, 20, 20, 64)
 # the sweep's shapes, a ragged tile, a ragged last tile past 128 (the
 # TPU kernel asserts S <= 128 or a multiple of 128; zamba2's prompts are
 # 1000 tokens), head dims 80 (zamba2) and 36 (bf16 with D % 8 != 0: the
-# CUDA-core kernel), qwen's and granite's prefills, the dense shelf's and
-# zamba2's
+# CUDA-core kernel), qwen's and granite's prefills, the dense shelf's,
+# zamba2's, internvl2's and whisper's
 FLASH_CASES = [(2, 128, 4, 4, 64), (1, 256, 4, 2, 128), (1, 384, 6, 1, 64),
                (2, 100, 4, 2, 64), (1, 300, 4, 2, 64), (1, 256, 4, 4, 80),
                (1, 256, 4, 2, 36),
                QWEN_ATTN, GRANITE_ATTN, CHATGLM_ATTN, STARCODER_ATTN,
-               DEEPSEEK_ATTN, ZAMBA_ATTN]
-# K3 timed at these (shape, window), causal, bf16, each beside sdpa on the
-# same shape and mask; the first is the kernels line's own
-FLASH_TIMED = [(QWEN_ATTN, 0), (GRANITE_ATTN, 0), (QWEN_ATTN, 256),
-               (CHATGLM_ATTN, 0), (STARCODER_ATTN, 0), (DEEPSEEK_ATTN, 0),
-               STARCODER_LONG, (ZAMBA_ATTN, 0)]
+               DEEPSEEK_ATTN, ZAMBA_ATTN, INTERNVL_ATTN, WHISPER_ENC,
+               WHISPER_DEC]
+# K3 timed at these (shape, window, causal), bf16, each beside sdpa on
+# the same shape and mask; the first is the kernels line's own
+FLASH_TIMED = [(QWEN_ATTN, 0, True), (GRANITE_ATTN, 0, True),
+               (QWEN_ATTN, 256, True), (CHATGLM_ATTN, 0, True),
+               (STARCODER_ATTN, 0, True), (DEEPSEEK_ATTN, 0, True),
+               (*STARCODER_LONG, True), (ZAMBA_ATTN, 0, True),
+               (INTERNVL_ATTN, 0, True), (WHISPER_ENC, 0, False),
+               (WHISPER_DEC, 0, True)]
 # head dims of the tensor-core kernel's four variants (D <= 64, 128, 192,
 # 256), whose registers, local memory and shared memory are reported
 TC_HEAD_DIMS = (64, 128, 192, 256)
@@ -1246,7 +1274,9 @@ SSD_TIMED = (MAMBA_SSD, ZAMBA_SSD)
 REQUESTS, NEW_TOKENS, GREEDY_PROMPT = 4, 16, 64
 # arch -> its phase-10 run: prompt length, windows, kernel launches per
 # layer per prefill (the hybrid adds one K3 per application point of its
-# shared block, ``prefill_launches``); "depth", the layers it is cut to
+# shared block, the audio model one per encoder layer,
+# ``prefill_launches``; the VLM and audio models' prompts follow a prefix
+# of ``num_prefix`` embeddings, ``model_prefix``); "depth", the layers it is cut to
 # (deepseek-67b's 95 take about 134 GB in bf16, more than one card
 # holds; 8 are 6.38 B parameters); "long", a further prefill as
 # (requests, prompt length, window) (starcoder2's 8192 tokens at its
@@ -1274,7 +1304,13 @@ SERVE = {"qwen1.5-0.5b": dict(prompt=1024, windows=(0, 256),
                               per_layer={"flash_attention": 1}, depth=8),
          "zamba2-2.7b": dict(prompt=1000, windows=(0,),
                              per_layer={"ssd_scan": 1}, supernet=True,
-                             chunked=("prompt",), smoke=dict(num_layers=4))}
+                             chunked=("prompt",), smoke=dict(num_layers=4)),
+         "internvl2-1b": dict(prompt=1024, windows=(0,),
+                              per_layer={"flash_attention": 1},
+                              supernet=True, chunked=("prompt",)),
+         "whisper-large-v3": dict(prompt=448, windows=(0,),
+                                  per_layer={"flash_attention": 1},
+                                  chunked=("prompt",))}
 # kernel route against torch route at full width, relative to the
 # logits' largest magnitude.  In bf16 the routes sum attention / the scan
 # in another order before the bf16 cast, and 24-48 layers of random
@@ -1471,8 +1507,12 @@ def check_ssd() -> float:
     return worst
 
 
-def flash_pairs(s: int, window: int) -> int:
-    """Unmasked (query, key) pairs of one causal head of length ``s``."""
+def flash_pairs(s: int, window: int, causal: bool = True) -> int:
+    """Unmasked (query, key) pairs of one head of length ``s``: causal
+    (within ``window``), or every pair (bidirectional; FLASH_TIMED times
+    no bidirectional window)."""
+    if not causal:
+        return s * s
     if not window:
         return s * (s + 1) // 2
     w = min(window, s)
@@ -1480,41 +1520,43 @@ def flash_pairs(s: int, window: int) -> int:
 
 
 def time_flash(card: str) -> dict:
-    """K3 at the FLASH_TIMED cases, bf16, causal, each beside
-    ``scaled_dot_product_attention`` on the same shape and mask (GQA as
-    ``enable_gqa``, the window as a boolean mask).  Bound: q, k, v read
+    """K3 at the FLASH_TIMED cases, bf16, causal or bidirectional, each
+    beside ``scaled_dot_product_attention`` on the same shape and mask
+    (GQA as ``enable_gqa``, the window as a boolean mask).  Bound: q, k, v read
     and out written once; 4 D flops per unmasked (query, key) pair (q.k
     and p.v) at the bf16 tensor-core rate.  The plain version is timed at
     every case.  Returns the first case's numbers, with every case under
     ``cases``."""
     sdpa = torch.nn.functional.scaled_dot_product_attention
     cases = []
-    for shape, window in FLASH_TIMED:
+    for shape, window, causal in FLASH_TIMED:
         b, s, h, kh, d = shape
         q, k, v = flash_inputs(*shape, torch.bfloat16, seed=9)
         nbytes = 2 * (2 * b * s * h * d + 2 * b * s * kh * d)
-        flops = 4 * d * b * h * flash_pairs(s, window)
+        flops = 4 * d * b * h * flash_pairs(s, window, causal)
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))  # (B, H, S, D)
         qi = torch.arange(s, device="cuda")[:, None]
         ki = torch.arange(s, device="cuda")[None, :]
         mask = (ki <= qi) & (ki > qi - window) if window else None
 
         def kernel():
-            return ops.flash_attention(q, k, v, window=window)
+            return ops.flash_attention(q, k, v, causal=causal, window=window)
 
         def library():      # the nearest single PyTorch call; never used
             if mask is None:
-                return sdpa(qt, kt, vt, is_causal=True, enable_gqa=kh != h)
+                return sdpa(qt, kt, vt, is_causal=causal,
+                            enable_gqa=kh != h)
             return sdpa(qt, kt, vt, attn_mask=mask, enable_gqa=kh != h)
 
-        res = {"shape": list(shape), "window": window,
+        res = {"shape": list(shape), "window": window, "causal": causal,
                "ms": device_ms(kernel, 20),
                "library_ms": device_ms(library, 20),
                "plain_ms": device_ms(lambda: ref.flash_attention(
-                   q, k, v, window=window), 5),
+                   q, k, v, causal=causal, window=window), 5),
                **bound(nbytes, flops, BF16_FLOPS)}
         call_ms = median_ms(kernel, 20)
-        log(f"timing flash_attention {shape} bf16 causal window {window} "
+        log(f"timing flash_attention {shape} bf16 "
+            f"{'causal' if causal else 'bidirectional'} window {window} "
             f"on {card}: kernel {res['ms']!r} ms (one call with its "
             f"dispatch {call_ms!r} ms), bound {res['bound_ms']!r} ms "
             f"({res['bound_by']}, {nbytes} B, {flops} flop), plain "
@@ -1780,13 +1822,27 @@ def check_moe_layers(cfg, params, inputs, label: str) -> None:
 
 def prefill_launches(cfg, per_layer: dict) -> dict:
     """Kernel launches of one kernel-route prefill: ``per_layer`` for
-    each layer, and for the hybrid one K3 per application point of its
-    shared block."""
+    each layer, for the hybrid one K3 per application point of its
+    shared block, and for the audio model one (bidirectional) K3 per
+    encoder layer."""
     out = {k: n * cfg.num_layers for k, n in per_layer.items()}
     if cfg.family == "hybrid":
         out["flash_attention"] = (out.get("flash_attention", 0)
                                   + cfg.num_layers // cfg.attn_every)
+    if cfg.family == "audio":
+        out["flash_attention"] = (out.get("flash_attention", 0)
+                                  + cfg.encoder_layers)
     return out
+
+
+def model_prefix(cfg, n: int, gen):
+    """The VLM's patches or the audio model's frames for ``n`` requests:
+    (n, num_prefix, d) float32, normal x 0.1 from ``gen``; None for the
+    other families."""
+    if cfg.family not in ("vlm", "audio"):
+        return None
+    return torch.randn((n, cfg.num_prefix, cfg.d_model), generator=gen,
+                       device=gen.device) * 0.1
 
 
 def compare_chunked(cfg, params, batch, window: int, label: str,
@@ -1905,9 +1961,16 @@ def serve_arch(arch: str, card: str) -> dict:
     prompt = torch.randint(0, cfg.vocab_size, (REQUESTS, run["prompt"]),
                            generator=gen, device="cuda")
     batch = {"tokens": prompt}
+    prefix = model_prefix(cfg, REQUESTS, gen)
+    if prefix is not None:
+        batch["prefix"] = prefix
     n_params = sum(t.numel() for t in tr.flat_params(params).values())
-    log(f"{arch}: {cfg.num_layers} layers, {n_params} parameters, "
-        f"{torch.cuda.memory_allocated()} B on the card")
+    log(f"{arch}: {cfg.num_layers} layers"
+        + (f" after {cfg.encoder_layers} encoder layers"
+           if cfg.encoder_layers else "")
+        + f", {n_params} parameters, {torch.cuda.memory_allocated()} B on "
+        "the card" + (f"; prompts after a prefix of {cfg.num_prefix} "
+                      "embeddings" if prefix is not None else ""))
     launches = None
     for window in run["windows"]:
         label = f"{arch} prefill, window {window}"
@@ -1945,12 +2008,17 @@ def serve_arch(arch: str, card: str) -> dict:
     del params32
     torch.cuda.empty_cache()
     gp = prompt[:, :GREEDY_PROMPT]
+    # the audio model's one encoder pass (kernel route) launches K3 once
+    # a layer; decode launches nothing
+    gen_launches = ({"flash_attention": cfg.encoder_layers}
+                    if cfg.family == "audio" else {})
     zero_launches()
     t0 = time.perf_counter()
-    toks = greedy_generate(params, cfg, gp, NEW_TOKENS)
+    toks = greedy_generate(params, cfg, gp, NEW_TOKENS, prefix=prefix)
     torch.cuda.synchronize()
     gen_s = time.perf_counter() - t0
-    expect_launches(f"{arch} greedy_generate", {})
+    expect_launches(f"{arch} greedy_generate", gen_launches)
+    expect_variants(f"{arch} greedy_generate", cfg, gen_launches)
     new = toks[:, GREEDY_PROMPT:]
     if (toks.shape != (REQUESTS, GREEDY_PROMPT + NEW_TOKENS)
             or not torch.equal(toks[:, :GREEDY_PROMPT], gp)
@@ -1958,8 +2026,10 @@ def serve_arch(arch: str, card: str) -> dict:
         raise AssertionError(f"{arch} greedy_generate: tokens "
                              f"{tuple(toks.shape)} {new.tolist()}")
     # decode rate: NEW_TOKENS steps against a replayed cache
+    enc_out = tr.encode(params, cfg, prefix) if cfg.family == "audio" \
+        else None
     cache = tr.prefill_cache(params, cfg, gp, cache_len=GREEDY_PROMPT
-                             + NEW_TOKENS + 1)
+                             + NEW_TOKENS + 1, enc_out=enc_out)
     step = make_decode_step(cfg)
     last = toks[:, GREEDY_PROMPT:GREEDY_PROMPT + 1]
     torch.cuda.synchronize()
@@ -1977,7 +2047,7 @@ def serve_arch(arch: str, card: str) -> dict:
     log(f"{arch} peak device memory: {peak} B (bf16 prefills), "
         f"{torch.cuda.max_memory_allocated()} B (the float32 prefill and "
         "the decode)")
-    del params, cache
+    del params, cache, enc_out
     torch.cuda.empty_cache()
     return launches
 
@@ -1988,16 +2058,24 @@ def check_replay_smoke() -> None:
     The MoE prefill routes all its tokens under a capacity and may drop
     choices, which the replay (2 tokens a step) never does; it is held
     at a capacity that cannot drop (E / k), after the drops at the
-    config's own are printed."""
+    config's own are printed.  The audio model's replay starts from the
+    encoder's output (its cross K/V).  The VLM's replay never sees the
+    patches, as the JAX package's (ROADMAP queue 3): it is held to the
+    text-only prefill of the same weights (a dense model, no prefix),
+    and its gap to the VLM's prefill is logged, with no limit."""
     for arch, run in SERVE.items():
         cfg = get_config(arch, smoke=True).replace(**run.get("smoke", {}))
         gen = torch.Generator(device="cuda").manual_seed(1)
         params = tr.init_params(gen, cfg)
         toks = torch.randint(0, cfg.vocab_size, (2, 12), generator=gen,
                              device="cuda")
+        batch = {"tokens": toks}
+        prefix = model_prefix(cfg, 2, gen)
+        if prefix is not None:
+            batch["prefix"] = prefix
         if cfg.family == "moe":
             with MoeInputs() as xs:
-                make_prefill_step(cfg)(params, {"tokens": toks})
+                make_prefill_step(cfg)(params, batch)
             drops = [int((r["slot"] == cfg.num_experts * r["cap"]).sum())
                      for r in (moe.route(p_l["moe"], x.reshape(
                          -1, cfg.d_model), cfg) for p_l, x in
@@ -2007,13 +2085,23 @@ def check_replay_smoke() -> None:
                 f"{cfg.num_experts / cfg.top_k}")
             cfg = cfg.replace(capacity_factor=cfg.num_experts / cfg.top_k)
         zero_launches()
-        last = make_prefill_step(cfg)(params, {"tokens": toks})
+        last = make_prefill_step(cfg)(params, batch)
         torch.cuda.synchronize()
         per_prefill = prefill_launches(cfg, run["per_layer"])
         expect_launches(f"{arch} smoke prefill", per_prefill)
         expect_variants(f"{arch} smoke prefill", cfg, per_prefill)
-        cache = tr.prefill_cache(params, cfg, toks[:, :-1], cache_len=12)
+        enc_out = tr.encode(params, cfg, prefix) if cfg.family == "audio" \
+            else None
+        cache = tr.prefill_cache(params, cfg, toks[:, :-1], cache_len=12,
+                                 enc_out=enc_out)
         dec, _ = tr.decode_step(params, cfg, toks[:, -1:], cache)
+        if cfg.family == "vlm":
+            caveat = float((last - dec).abs().max())
+            last = make_prefill_step(cfg.replace(family="dense"))(
+                params, {"tokens": toks})
+            log(f"{arch} smoke size: the decode replay never sees the "
+                f"patches (as the JAX package's): its gap to the VLM "
+                f"prefill {caveat!r}; held to the text-only prefill")
         diff = float((last - dec).abs().max())
         log(f"{arch} smoke size ({cfg.num_layers} layers), float32: "
             f"prefill vs decode replay max abs diff {diff!r}")
@@ -2069,7 +2157,7 @@ def supernet_launches(cfg, per_layer: dict, key) -> dict:
 
 
 def supernet_key_routes(cfg, params, toks, name: str, key, per_layer: dict,
-                        arch: str) -> dict:
+                        arch: str, prefix=None) -> dict:
     """One supernet key on both routes: ``forward(..., choice_key=)`` on
     the kernel route (launch counts zeroed just before and read just
     after: ``supernet_launches``) against the torch route, within
@@ -2078,12 +2166,13 @@ def supernet_key_routes(cfg, params, toks, name: str, key, per_layer: dict,
     label = f"{arch} supernet, {cfg.dtype}, key {name}"
     expected = supernet_launches(cfg, per_layer, key)
     zero_launches()
-    logits_k = tr.forward(params, cfg, toks, choice_key=key)
+    logits_k = tr.forward(params, cfg, toks, prefix=prefix, choice_key=key)
     torch.cuda.synchronize()
     got = expect_launches(f"{label}, kernel route", expected)
     expect_variants(f"{label}, kernel route", cfg, expected)
     zero_launches()
-    logits_t = tr.forward(params, cfg, toks, choice_key=key, backend="torch")
+    logits_t = tr.forward(params, cfg, toks, prefix=prefix, choice_key=key,
+                          backend="torch")
     torch.cuda.synchronize()
     expect_launches(f"{label}, torch route", {})
     for nm, lg in (("kernel", logits_k), ("torch", logits_t)):
@@ -2108,8 +2197,9 @@ def check_supernet_branches(card: str) -> dict:
     4 requests of 256 tokens: every key of ``supernet_keys`` in bf16, and
     the mixed key again in float32 (weights from the same seed), where
     LOGIT_TOL is 1e-3 and a branch mask missing or wrong on one route
-    shows (``supernet_key_routes``).  Returns the bf16 launches by arch
-    and key."""
+    shows (``supernet_key_routes``); the VLM's with its 256 patches
+    before the tokens.  Then an audio supernet's forward raises, as the
+    JAX package's.  Returns the bf16 launches by arch and key."""
     out = {}
     for arch in SUPERNET_ARCHS:
         per_layer = SERVE[arch]["per_layer"]
@@ -2121,6 +2211,7 @@ def check_supernet_branches(card: str) -> dict:
             toks = torch.randint(0, cfg.vocab_size,
                                  (REQUESTS, SUPERNET_TOKENS), generator=gen,
                                  device="cuda")
+            prefix = model_prefix(cfg, REQUESTS, gen)
             keys = supernet_keys(cfg.num_layers)
             if dtype == "float32":
                 keys = {"mixed": keys["mixed"]}
@@ -2129,7 +2220,7 @@ def check_supernet_branches(card: str) -> dict:
                                for v in tr.flat_params(params).values())
             for name, key in keys.items():
                 got = supernet_key_routes(cfg, params, toks, name, key,
-                                          per_layer, arch)
+                                          per_layer, arch, prefix)
                 if dtype == "bfloat16":
                     out[arch][name] = got
             del params
@@ -2137,6 +2228,18 @@ def check_supernet_branches(card: str) -> dict:
         log(f"{arch} supernet: {n_params} parameters ({cfg.num_layers} "
             f"layers x 3 branches), bf16 launches by key {out[arch]} on "
             f"{card}")
+    cfg = get_config("whisper-large-v3", smoke=True).replace(supernet=True)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = tr.init_params(gen, cfg)
+    toks = torch.zeros((2, 8), dtype=torch.int64, device="cuda")
+    try:
+        tr.forward(params, cfg, toks, prefix=model_prefix(cfg, 2, gen),
+                   choice_key=np.ones(cfg.num_layers, int))
+    except ValueError as e:
+        log(f"whisper-large-v3 supernet forward raises, as the JAX "
+            f"package's: {e}")
+    else:
+        raise AssertionError("an audio supernet's forward ran")
     return out
 
 
@@ -2389,9 +2492,17 @@ TRAIN_KEYS = ([1, 2], [3, 0], [2, 1])
 
 
 def lm_batch(cfg, seed: int, n: int, seq: int, device="cuda") -> dict:
+    """``make_lm_stream`` tokens and labels, and for the VLM and audio
+    models a prefix of ``num_prefix`` embeddings (normal x 0.1 from
+    ``seed``, numpy)."""
     x, y = make_lm_stream(seed, n, seq, cfg.vocab_size)
-    return {"tokens": torch.from_numpy(x).to(device),
-            "labels": torch.from_numpy(y).to(device)}
+    batch = {"tokens": torch.from_numpy(x).to(device),
+             "labels": torch.from_numpy(y).to(device)}
+    if cfg.family in ("vlm", "audio"):
+        batch["prefix"] = torch.from_numpy(np.random.default_rng(seed).normal(
+            0.0, 0.1, (n, cfg.num_prefix, cfg.d_model)).astype(
+                np.float32)).to(device)
+    return batch
 
 
 def check_train_full_width(card: str, backend: str = "torch") -> dict:
@@ -2641,13 +2752,18 @@ def check_train_card_vs_cpu() -> dict:
     """(d) Smoke size, float32: one SGD and one AdamW step on the card
     against the same step on the CPU (the path the CPU tests hold to the
     JAX package), loss and parameters within CARD_CPU_TOL; then the
-    qwen supernet's 3 SGD steps with a key each."""
+    qwen supernet's 3 SGD steps with a key each; then one SGD step of
+    internvl2-1b and of whisper-large-v3, each with its prefix."""
     res = {}
     base = get_config(TRAIN_ARCH, smoke=True)
     for label, cfg, optimizer, keys in (
             ("sgd", base, "sgd", None), ("adamw", base, "adamw", None),
             ("supernet sgd", base.replace(supernet=True), "sgd",
-             TRAIN_KEYS)):
+             TRAIN_KEYS),
+            ("internvl2-1b sgd", get_config("internvl2-1b", smoke=True),
+             "sgd", None),
+            ("whisper-large-v3 sgd",
+             get_config("whisper-large-v3", smoke=True), "sgd", None)):
         params = {"cpu": tr.init_params(torch.Generator().manual_seed(4),
                                         cfg)}
         params["cuda"] = to_device(params["cpu"], "cuda")

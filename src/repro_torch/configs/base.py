@@ -2,14 +2,17 @@
 
 ``ModelConfig`` carries the same fields as the JAX package's, so a
 configuration reads the same in both; ``torch_dtype`` takes the place of
-``jdtype``.  Ported so far: the paper's CIFAR supernet; the dense
-models ``qwen1.5-0.5b``, ``chatglm3-6b`` (2d RoPE, 2 KV heads),
-``starcoder2-3b`` (sliding window 4096) and ``deepseek-67b`` (too large
-for one card at full depth); ``mamba2-780m`` (SSM);
+``jdtype``.  Every architecture of the JAX package: the paper's CIFAR
+supernet; the dense models ``qwen1.5-0.5b``, ``chatglm3-6b`` (2d RoPE, 2
+KV heads), ``starcoder2-3b`` (sliding window 4096) and ``deepseek-67b``
+(too large for one card at full depth); ``mamba2-780m`` (SSM);
 ``granite-moe-1b-a400m`` (MoE) and ``llama4-scout-17b-a16e`` (MoE with a
-shared expert; too large for one card, run at smoke size); and
-``zamba2-2.7b`` (hybrid: SSM layers and one shared attention block).
-The VLM and audio families raise.
+shared expert; too large for one card, run at smoke size);
+``zamba2-2.7b`` (hybrid: SSM layers and one shared attention block);
+``internvl2-1b`` (VLM: a projected prefix of 256 stub patch embeddings
+before the tokens) and ``whisper-large-v3`` (audio: a bidirectional
+encoder over 1500 stub frame embeddings, and a decoder with cross
+attention).
 """
 from __future__ import annotations
 
@@ -85,7 +88,7 @@ class ModelConfig:
         return dataclasses.replace(self, **kw)
 
 
-# CLI ids -> module names of the architectures ported so far
+# CLI ids -> module names of the architectures
 ARCH_ALIASES = {
     "cifar-supernet": "cifar_supernet",
     "qwen1.5-0.5b": "qwen1p5_0p5b",
@@ -96,6 +99,8 @@ ARCH_ALIASES = {
     "granite-moe-1b-a400m": "granite_moe_1b_a400m",
     "llama4-scout-17b-a16e": "llama4_scout_17b_a16e",
     "zamba2-2.7b": "zamba2_2p7b",
+    "internvl2-1b": "internvl2_1b",
+    "whisper-large-v3": "whisper_large_v3",
 }
 
 
@@ -103,9 +108,7 @@ def get_config(arch: str, smoke: bool = False) -> ModelConfig:
     """Load ``config()`` (or ``smoke_config()``) from the arch module."""
     mod_name = ARCH_ALIASES.get(arch)
     if mod_name is None:
-        raise ValueError(
-            f"architecture {arch!r} is not yet ported to repro_torch "
-            f"(ported: {sorted(ARCH_ALIASES)}; still to come: VLM "
-            "(internvl2-1b) and audio (whisper-large-v3), ROADMAP queue 1)")
+        raise ValueError(f"unknown architecture {arch!r} (known: "
+                         f"{sorted(ARCH_ALIASES)})")
     mod = importlib.import_module(f"repro_torch.configs.{mod_name}")
     return mod.smoke_config() if smoke else mod.config()

@@ -19,7 +19,10 @@ layouts (dense ``w`` is ``(d_in, d_out)`` in both; a MoE layer's
 ``moe.router.w`` is ``(d, E)``, ``moe.experts.wi``/``wg`` ``(E, d, F)``
 and ``wo`` ``(E, F, d)``, beside ``moe.shared`` where the config has a
 shared expert).  The hybrid's ``shared`` block is one unstacked dense
-block in both, a supernet's too.  Leaves are matched by path.  A supernet's layer leaves
+block in both, a supernet's too; so are the VLM's ``proj`` and the audio
+model's ``enc_ln``.  The audio model's ``encoder`` is stacked on a
+leading ``encoder_layers`` axis in the JAX package and a list of that
+many block dicts here, as ``layers`` is.  Leaves are matched by path.  A supernet's layer leaves
 are ``(L, 3, ...)`` in the JAX package (the weighted branches 1-3 on the
 second axis) and ``params["layers"][l][b]`` here, a list of 3 branch
 dicts per layer; ``models.transformer.flat_params`` then names them
@@ -87,11 +90,16 @@ def params_to_reference(params: Dict[str, torch.Tensor]):
     return tree
 
 
+# the families of the language models, whose parameters cross here
+_LM_FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "audio")
+# the per-layer stacks: name -> the config field that counts its layers
+_STACKS = {"layers": "num_layers", "encoder": "encoder_layers"}
+
+
 def _lm_family_check(cfg: ModelConfig) -> None:
-    if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
-        raise NotImplementedError(
-            f"{cfg.name}: only the dense, moe, ssm and hybrid families are "
-            "ported (ROADMAP queue 1)")
+    if cfg.family not in _LM_FAMILIES:
+        raise ValueError(f"{cfg.name}: not a language model (family "
+                         f"{cfg.family!r})")
 
 
 def _leaf_to_port(a, dtype: torch.dtype) -> torch.Tensor:
@@ -109,10 +117,12 @@ def _tree_to_port(tree, dtype_of):
 
 def lm_params_from_reference(cfg: ModelConfig, tree) -> Dict:
     """The JAX package's LM parameter tree (leaves as numpy arrays,
-    per-layer leaves stacked on ``L``, a supernet's on ``(L, 3)``) -> the
-    port's nested dicts on the CPU, ``layers`` a list of ``L`` dicts (a
-    supernet's: of ``L`` lists of 3 branch dicts).  float32 leaves stay
-    float32; the others take the config's dtype."""
+    per-layer leaves stacked on ``L``, a supernet's on ``(L, 3)``, the
+    audio encoder's on ``encoder_layers``) -> the port's nested dicts on
+    the CPU, ``layers`` a list of ``L`` dicts (a supernet's: of ``L``
+    lists of 3 branch dicts), ``encoder`` a list of ``encoder_layers``
+    dicts.  float32 leaves stay float32; the others take the config's
+    dtype."""
     _lm_family_check(cfg)
 
     def dtype_of(a):
@@ -120,29 +130,35 @@ def lm_params_from_reference(cfg: ModelConfig, tree) -> Dict:
                 else cfg.torch_dtype)
 
     out = {k: _tree_to_port(v, dtype_of) for k, v in tree.items()
-           if k != "layers"}
+           if k not in _STACKS}
 
-    def unstack(node, idx):
+    def unstack(node, idx, lead):
         if isinstance(node, dict):
-            return {k: unstack(v, idx) for k, v in node.items()}
+            return {k: unstack(v, idx, lead) for k, v in node.items()}
         a = np.asarray(node)
-        lead = (cfg.num_layers, N_BRANCHES)[:len(idx)]
         if a.shape[:len(idx)] != lead:
             raise ValueError(f"layer leaf of shape {a.shape}: expected "
                              f"leading axes {lead}")
         return _leaf_to_port(a[idx], dtype_of(a))
 
-    lt = tree["layers"]
-    out["layers"] = [
-        [unstack(lt, (l, b)) for b in range(N_BRANCHES)] if cfg.supernet
-        else unstack(lt, (l,)) for l in range(cfg.num_layers)]
+    for name, count in _STACKS.items():
+        if name not in tree:
+            continue
+        n = getattr(cfg, count)
+        branched = name == "layers" and cfg.supernet
+        lead = (n, N_BRANCHES) if branched else (n,)
+        out[name] = [
+            [unstack(tree[name], (l, b), lead) for b in range(N_BRANCHES)]
+            if branched else unstack(tree[name], (l,), lead)
+            for l in range(n)]
     return out
 
 
 def lm_params_to_reference(cfg: ModelConfig, params: Dict):
     """Inverse of ``lm_params_from_reference``: numpy arrays in the JAX
     package's nesting, per-layer leaves stacked on ``L`` (a supernet's on
-    ``(L, 3)``; bfloat16 leaves as float32 arrays of the same values)."""
+    ``(L, 3)``, the encoder's on ``encoder_layers``; bfloat16 leaves as
+    float32 arrays of the same values)."""
     _lm_family_check(cfg)
 
     def leaf(t: torch.Tensor) -> np.ndarray:
@@ -156,11 +172,7 @@ def lm_params_to_reference(cfg: ModelConfig, params: Dict):
             return {k: tree(v) for k, v in node.items()}
         return leaf(node)
 
-    out = {k: tree(v) for k, v in params.items() if k != "layers"}
-    layers = params["layers"]
-    if len(layers) != cfg.num_layers:
-        raise ValueError(f"{len(layers)} layers, config has "
-                         f"{cfg.num_layers}")
+    out = {k: tree(v) for k, v in params.items() if k not in _STACKS}
 
     def stack(nodes):
         if isinstance(nodes[0], dict):
@@ -169,9 +181,16 @@ def lm_params_to_reference(cfg: ModelConfig, params: Dict):
             return np.stack(nodes)
         return np.stack([leaf(n) for n in nodes])
 
-    if cfg.supernet:
-        # (L, 3, ...): stack each layer's branches, then the layers
-        out["layers"] = stack([stack(list(branches)) for branches in layers])
-    else:
-        out["layers"] = stack(layers)
+    for name, count in _STACKS.items():
+        if name not in params:
+            continue
+        blocks = params[name]
+        if len(blocks) != getattr(cfg, count):
+            raise ValueError(f"{len(blocks)} blocks in {name!r}, config "
+                             f"has {getattr(cfg, count)}")
+        if name == "layers" and cfg.supernet:
+            # (L, 3, ...): stack each layer's branches, then the layers
+            out[name] = stack([stack(list(branches)) for branches in blocks])
+        else:
+            out[name] = stack(blocks)
     return out

@@ -6,6 +6,10 @@ Run (on the CUDA card; ``--device cpu`` runs it on the CPU):
 
     PYTHONPATH=src python -m repro_torch.examples.train_lm --arch qwen1.5-0.5b
     PYTHONPATH=src python -m repro_torch.examples.train_lm --arch mamba2-780m
+    PYTHONPATH=src python -m repro_torch.examples.train_lm --arch whisper-large-v3
+
+The VLM and audio models train on a zero prefix of ``num_prefix``
+embeddings, as the JAX package's example.
 
 Also demonstrates the paper technique on a transformer: --supernet samples
 a random choice key per step (one-shot supernet training).
@@ -55,6 +59,9 @@ def main(argv=None):
     for i in range(args.steps):
         rows = slice(i * args.batch, (i + 1) * args.batch)
         batch = {"tokens": x[rows], "labels": y[rows]}
+        if cfg.family in ("vlm", "audio"):
+            batch["prefix"] = torch.zeros(
+                (args.batch, cfg.num_prefix, cfg.d_model), device=device)
         if args.supernet:
             batch["choice_key"] = key_rng.integers(0, 4, cfg.num_layers)
         params, opt, loss = step_fn(params, opt, batch)

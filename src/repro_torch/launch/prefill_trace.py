@@ -5,9 +5,14 @@
         --backend torch
     python -m repro_torch.launch.prefill_trace --arch zamba2-2.7b \\
         --backend chunked
+    python -m repro_torch.launch.prefill_trace --arch whisper-large-v3 \\
+        --prompt-len 448
 
 The config runs at full width with seeded random weights, on 4 requests
-of 1024 tokens (the serving shape of ``chip_smoke.py``).  One prefill warms up; the next runs under
+of 1024 tokens (``--prompt-len``; the serving shape of
+``chip_smoke.py``), after a seeded prefix of ``num_prefix`` embeddings
+(normal x 0.1) for the VLM (``internvl2-1b``: 256 patches) and audio
+(``whisper-large-v3``: 1500 frames through the encoder) models.  One prefill warms up; the next runs under
 ``torch.profiler``.  Prints the untraced prefill's wall time (host clock
 around one prefill that ends in a synchronise, median of 3), the traced
 one's, the device's busy time (the sum of its traced activities: one
@@ -52,10 +57,9 @@ def summarize(events: Iterable[Tuple[str, float]], wall_ms: float,
 REQUESTS, PROMPT_LEN, TOP = 4, 1024, 15
 
 
-def trace_prefill(cfg, params, tokens: torch.Tensor, *, window: int = 0,
+def trace_prefill(cfg, params, batch: Dict, *, window: int = 0,
                   backend: str = "kernel") -> Dict:
     step = make_prefill_step(cfg, window=window, backend=backend)
-    batch = {"tokens": tokens}
     walls = []
     for _ in range(4):              # the first warms up
         torch.cuda.synchronize()
@@ -88,6 +92,7 @@ def main(argv=None) -> None:
                     help="kernel, torch or chunked")
     ap.add_argument("--window", type=int, default=0)
     ap.add_argument("--dtype", default="", help="override the config's")
+    ap.add_argument("--prompt-len", type=int, default=PROMPT_LEN)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise RuntimeError("prefill_trace needs a CUDA device")
@@ -97,12 +102,19 @@ def main(argv=None) -> None:
     gen = torch.Generator(device="cuda").manual_seed(0)
     with torch.inference_mode():
         params = tr.init_params(gen, cfg)
-        tokens = torch.randint(0, cfg.vocab_size, (REQUESTS, PROMPT_LEN),
-                               generator=gen, device="cuda")
-        res = trace_prefill(cfg, params, tokens, window=args.window,
+        batch = {"tokens": torch.randint(0, cfg.vocab_size,
+                                         (REQUESTS, args.prompt_len),
+                                         generator=gen, device="cuda")}
+        if cfg.family in ("vlm", "audio"):
+            batch["prefix"] = torch.randn(
+                (REQUESTS, cfg.num_prefix, cfg.d_model), generator=gen,
+                device="cuda") * 0.1
+        res = trace_prefill(cfg, params, batch, window=args.window,
                             backend=args.backend)
+    prefix = f" after {cfg.num_prefix} prefix embeddings" \
+        if "prefix" in batch else ""
     label = (f"{cfg.name} {cfg.dtype} prefill of {REQUESTS} x "
-             f"{PROMPT_LEN} tokens, window {args.window}, "
+             f"{args.prompt_len} tokens{prefix}, window {args.window}, "
              f"{args.backend} route, on {torch.cuda.get_device_name(0)}")
     print(f"{label}: wall {res['untraced_wall_ms']!r} ms untraced, "
           f"{res['wall_ms']!r} ms traced; device busy {res['busy_ms']!r} "

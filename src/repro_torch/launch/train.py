@@ -24,6 +24,10 @@ the first step.
 
     python -m repro_torch.launch.train --arch zamba2-2.7b --device cpu \
         --backend chunked
+    python -m repro_torch.launch.train --arch whisper-large-v3 --device cpu
+
+The VLM (``internvl2-1b``) and audio (``whisper-large-v3``) models train
+on a zero prefix of ``num_prefix`` embeddings, as the JAX package's CLI.
 """
 from __future__ import annotations
 
@@ -47,13 +51,15 @@ def make_loss_fn(cfg: ModelConfig, *, window: int = 0,
                  backend: str = "torch", remat: bool = True,
                  fused_ce: bool = True) -> Callable:
     """``loss_fn(params, batch)`` -> the mean token cross entropy of
-    ``batch["labels"]`` given ``batch["tokens"]`` (and a supernet's
-    ``batch["choice_key"]``, host ints), plus ``AUX_WEIGHT`` x aux."""
+    ``batch["labels"]`` given ``batch["tokens"]`` (and the VLM's or audio
+    model's ``batch["prefix"]``, a supernet's ``batch["choice_key"]``,
+    host ints), plus ``AUX_WEIGHT`` x aux."""
     def loss_fn(params, batch):
         out, aux = tr.forward(
-            params, cfg, batch["tokens"], choice_key=batch.get("choice_key"),
-            window=window, backend=backend, remat=remat,
-            return_hidden=fused_ce, return_aux=True)
+            params, cfg, batch["tokens"], prefix=batch.get("prefix"),
+            choice_key=batch.get("choice_key"), window=window,
+            backend=backend, remat=remat, return_hidden=fused_ce,
+            return_aux=True)
         if fused_ce:
             loss = fused_cross_entropy(out, params["embed"]["table"],
                                        batch["labels"])
@@ -161,8 +167,11 @@ def main(argv=None) -> None:
           f"{args.backend} route")
     for i in range(args.steps):
         rows = slice(i * args.batch, (i + 1) * args.batch)
-        params, opt, loss = step_fn(params, opt, {"tokens": x[rows],
-                                                  "labels": y[rows]})
+        batch = {"tokens": x[rows], "labels": y[rows]}
+        if cfg.family in ("vlm", "audio"):
+            batch["prefix"] = torch.zeros(
+                (args.batch, cfg.num_prefix, cfg.d_model), device=device)
+        params, opt, loss = step_fn(params, opt, batch)
         if i % 10 == 0 or i == args.steps - 1:
             print(f"step {i:4d} loss {float(loss):.4f}")
 

@@ -1,9 +1,10 @@
-"""Grouped-query self-attention of the dense language models.
+"""Grouped-query attention of the language models.
 
 Supports GQA (num_kv_heads <= num_heads), RoPE 1d / 2d / none, optional
-QKV bias, causal or sliding-window masks, single-token decode against a
-(ring-buffered) KV cache, and a per-head mask for the supernet's lite
-branch, with the JAX package's names and layouts.
+QKV bias, causal, sliding-window or bidirectional (an encoder's) masks,
+cross attention over precomputed encoder K/V (whisper), single-token
+decode against a (ring-buffered) KV cache, and a per-head mask for the
+supernet's lite branch, with the JAX package's names and layouts.
 
 The softmax(QKᵀ)V core of a full sequence takes one of three routes:
 ``backend="kernel"`` (the default) is ``kernels.ops.flash_attention``
@@ -11,8 +12,8 @@ The softmax(QKᵀ)V core of a full sequence takes one of three routes:
 ``backend="torch"`` is the einsum path ``_attend`` (the JAX package's
 ``"xla"``) and ``backend="chunked"`` is ``_attend_chunked``, the same
 einsums over blocks of queries, each recomputed in the backward pass, so
-that only a chunk x T score tile is live.  Decode always takes
-``_attend``, as in the JAX package.
+that only a chunk x T score tile is live.  Decode and cross
+attention always take ``_attend``, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -133,11 +134,13 @@ def causal_mask(s: int, window: int = 0, device=None) -> torch.Tensor:
 
 
 def self_attention(p, x, positions, *, num_heads, num_kv_heads, head_dim,
-                   rope_style="1d", theta=10000.0, window=0,
+                   rope_style="1d", theta=10000.0, causal=True, window=0,
                    head_mask=None, backend="kernel"):
-    """Full-sequence causal self attention (prefill).  x: (B, S, d).
-    ``head_mask`` (H,) zeroes heads' outputs after the softmax(QKᵀ)V core,
-    outside the kernel on the kernel route, as the JAX package does."""
+    """Full-sequence self attention (train / prefill), causal or, with
+    ``causal=False``, bidirectional (an encoder's: every key visible on
+    every route).  x: (B, S, d).  ``head_mask`` (H,) zeroes heads'
+    outputs after the softmax(QKᵀ)V core, outside the kernel on the
+    kernel route, as the JAX package does."""
     kops.check_backend(backend)
     q = _split_heads(dense(p["wq"], x), num_heads)
     k = _split_heads(dense(p["wk"], x), num_kv_heads)
@@ -146,16 +149,38 @@ def self_attention(p, x, positions, *, num_heads, num_kv_heads, head_dim,
     k = apply_rope(k, positions, theta, rope_style)
     b, s = x.shape[:2]
     if backend == "kernel":
-        out = kops.flash_attention(q, k, v, causal=True, window=window)
+        out = kops.flash_attention(q, k, v, causal=causal, window=window)
         if head_mask is not None:
             out = out * head_mask.to(out.dtype)[None, None, :, None]
         out = out.reshape(b, s, num_heads * head_dim)
     elif backend == "chunked":
-        out = _attend_chunked(q, k, v, window=window, head_mask=head_mask)
+        out = _attend_chunked(q, k, v, causal=causal, window=window,
+                              head_mask=head_mask)
     else:
-        out = _attend(q, k, v, causal_mask(s, window=window,
-                                           device=x.device), head_mask)
+        mask = causal_mask(s, window=window, device=x.device) if causal \
+            else torch.ones((1, s, s), dtype=torch.bool, device=x.device)
+        out = _attend(q, k, v, mask, head_mask)
     return dense(p["wo"], out)
+
+
+def cross_attention(p, x, enc_kv, *, num_heads, num_kv_heads, head_dim,
+                    head_mask=None):
+    """Decoder -> encoder attention.  x: (B, S, d); ``enc_kv`` = (k, v)
+    precomputed from the encoder output (``encode_kv``), each (B, T_enc,
+    Kh, D); every key visible.  Always ``_attend``, on every backend, as
+    in the JAX package (K3 needs as many keys as queries)."""
+    q = _split_heads(dense(p["wq"], x), num_heads)
+    k, v = enc_kv
+    mask = torch.ones((1, x.shape[1], k.shape[1]), dtype=torch.bool,
+                      device=x.device)
+    return dense(p["wo"], _attend(q, k, v, mask, head_mask))
+
+
+def encode_kv(p, enc_out, *, num_kv_heads):
+    """Cross-attention K/V from the encoder output (once per request):
+    (B, T_enc, d) -> two (B, T_enc, Kh, D)."""
+    return (_split_heads(dense(p["wk"], enc_out), num_kv_heads),
+            _split_heads(dense(p["wv"], enc_out), num_kv_heads))
 
 
 def init_cache(batch, num_kv_heads, head_dim, cache_len, dtype,

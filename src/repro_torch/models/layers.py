@@ -5,7 +5,8 @@ layouts: a dense ``w`` is ``(d_in, d_out)`` and ``x @ w`` applies it.
 Every layer is a pair of an ``*_init`` taking an explicit
 ``torch.Generator`` (its device is the parameters' device) and an apply
 function.  The numerics follow the JAX package: RMSNorm in float32, RoPE
-on interleaved pairs in float32, GELU in its tanh approximation.
+on interleaved pairs in float32, sinusoidal positions in float32, GELU in
+its tanh approximation.
 """
 from __future__ import annotations
 
@@ -62,6 +63,20 @@ def embed(p: Params, tokens: torch.Tensor) -> torch.Tensor:
 def unembed(p: Params, x: torch.Tensor) -> torch.Tensor:
     """Tied-weights unembedding: logits over the vocabulary."""
     return x @ p["table"].t()
+
+
+def sinusoidal_positions(seq_len: int, d: int, dtype=torch.float32,
+                         offset: int = 0, device=None) -> torch.Tensor:
+    """Whisper-style sinusoidal position embeddings (seq_len, d): the
+    halves ``[sin | cos]`` of ``(offset + i) * exp(-ln(10000) 2j / d)``,
+    computed in float32 and cast to ``dtype`` (so a sum with bf16 hidden
+    states rounds as the JAX package's does).  ``offset`` is a host int
+    (the decode position)."""
+    pos = (torch.arange(seq_len, dtype=torch.float32, device=device)
+           + float(offset))[:, None]
+    dim = torch.arange(0, d, 2, dtype=torch.float32, device=device)[None, :]
+    ang = pos * torch.exp(-math.log(10000.0) * dim / d)
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1).to(dtype)
 
 
 def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:

@@ -1,14 +1,26 @@
-"""Dense, MoE, SSM and hybrid language-model stacks: init, full-sequence
-forward, serving (cache init, prefill by replay, single-token decode),
-and the paper's supernet over them.
+"""Dense, MoE, SSM, hybrid, VLM and audio (encoder-decoder) language
+model stacks: init, full-sequence forward, serving (cache init, prefill
+by replay, single-token decode), and the paper's supernet over them.
 
 Parameters are nested dicts of tensors with the JAX package's names and
 per-layer layouts; where the JAX package stacks every per-layer leaf on a
 leading ``L`` axis and scans over it, the port keeps ``params["layers"]``
-as a list of per-layer dicts and loops over it in Python
-(``convert.lm_params_from_reference`` carries weights across).  The
-``dense``, ``moe``, ``ssm`` and ``hybrid`` families are ported; VLM and
-audio raise, naming their ROADMAP item.
+(and the audio encoder's ``params["encoder"]``) as a list of per-layer
+dicts and loops over it in Python (``convert.lm_params_from_reference``
+carries weights across).
+
+The VLM (internvl2) is a dense decoder whose ``forward`` takes a prefix of
+stub patch embeddings, projected by ``params["proj"]`` (d x d, with bias)
+and put before the tokens: positions and the causal mask run over prefix
++ tokens, and the logits cover the tokens only.  Its decode, as the JAX
+package's, is the text-only decoder: ``prefill_cache`` takes no prefix
+(ROADMAP queue 3).  The audio model (whisper) runs ``encode`` over a
+prefix of stub frame embeddings (sinusoidal positions, bidirectional
+``"enc"`` blocks with a GELU MLP, ``enc_ln``); its decoder layers
+(``"encdec"``) add cross attention over the encoder output after self
+attention, the tokens get sinusoidal positions (no RoPE), and its decode
+cache keeps each layer's cross K/V (``cross_k`` / ``cross_v``), filled
+once from the encoder output by ``prefill_cache(..., enc_out=)``.
 
 The hybrid (zamba2) is a stack of SSM layers with one dense
 attention+MLP block, ``params["shared"]``, applied after every
@@ -44,28 +56,24 @@ from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (
-    embed, embedding_init, mlp, mlp_init, rmsnorm, rmsnorm_init, unembed,
+    dense, dense_init, embed, embedding_init, mlp, mlp_init, rmsnorm,
+    rmsnorm_init, sinusoidal_positions, unembed,
 )
 
 Params = Dict[str, Any]
 
 N_BRANCHES = 3      # weighted branches per supernet layer (0 = identity)
 
-_NOT_PORTED = {
-    "vlm": "ROADMAP queue 1: VLM and audio",
-    "audio": "ROADMAP queue 1: VLM and audio",
-}
+# family -> the kind of its decoder layers
+_LAYER_KINDS = {"dense": "dense", "vlm": "dense", "moe": "moe", "ssm": "ssm",
+                "hybrid": "ssm", "audio": "encdec"}
 
 
 def _layer_kind(cfg: ModelConfig) -> str:
-    if cfg.family not in ("dense", "moe", "ssm", "hybrid", *_NOT_PORTED):
+    if cfg.family not in _LAYER_KINDS:
         raise ValueError(f"{cfg.name}: not a language model "
                          f"(family {cfg.family!r})")
-    if cfg.family in _NOT_PORTED:
-        raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} is not yet ported to "
-            f"repro_torch ({_NOT_PORTED[cfg.family]})")
-    return "ssm" if cfg.family == "hybrid" else cfg.family
+    return _LAYER_KINDS[cfg.family]
 
 
 def _serving_kind(cfg: ModelConfig) -> str:
@@ -100,24 +108,39 @@ def branch_masks(cfg: ModelConfig, device=None) -> Dict[str, torch.Tensor]:
 
 
 def block_init(gen: torch.Generator, cfg: ModelConfig, kind: str) -> Params:
+    """One block of ``kind``: ``dense`` or ``moe`` (attention, then a
+    SwiGLU MLP or the experts), ``ssm``, ``enc`` (an encoder block:
+    attention, then a GELU MLP) or ``encdec`` (a decoder block of the
+    audio model: self attention, cross attention ``xattn`` without QKV
+    bias, then a GELU MLP)."""
     d, dt, dev = cfg.d_model, cfg.torch_dtype, gen.device
-    if kind in ("dense", "moe"):
-        return {"ln1": rmsnorm_init(d, dt, dev),
-                "attn": attn.attention_init(
-                    gen, d, cfg.num_heads, cfg.num_kv_heads, cfg.hd, dt,
-                    qkv_bias=cfg.qkv_bias),
-                "ln2": rmsnorm_init(d, dt, dev),
-                **({"moe": moe_mod.moe_init(gen, cfg)} if kind == "moe"
-                   else {"mlp": mlp_init(gen, d, cfg.d_ff, dt)})}
-    return {"ln": rmsnorm_init(d, dt, dev),
-            "ssm": ssm_mod.ssm_init(gen, cfg)}
+    if kind == "ssm":
+        return {"ln": rmsnorm_init(d, dt, dev),
+                "ssm": ssm_mod.ssm_init(gen, cfg)}
+
+    def attention(qkv_bias):
+        return attn.attention_init(gen, d, cfg.num_heads, cfg.num_kv_heads,
+                                   cfg.hd, dt, qkv_bias=qkv_bias)
+
+    p = {"ln1": rmsnorm_init(d, dt, dev), "attn": attention(cfg.qkv_bias)}
+    if kind == "encdec":
+        p["lnx"] = rmsnorm_init(d, dt, dev)
+        p["xattn"] = attention(False)
+    p["ln2"] = rmsnorm_init(d, dt, dev)
+    if kind == "moe":
+        p["moe"] = moe_mod.moe_init(gen, cfg)
+    else:
+        p["mlp"] = mlp_init(gen, d, cfg.d_ff, dt, gated=kind == "dense")
+    return p
 
 
 def init_params(gen: torch.Generator, cfg: ModelConfig) -> Params:
     """Random weights from ``gen``, on its device, in the config's dtype
     (the JAX package's init distributions; not its random bits).  A
     supernet's layer is a list of ``N_BRANCHES`` blocks; the hybrid's
-    shared block is one dense block, a supernet's too."""
+    shared block is one dense block, a supernet's too.  The VLM adds
+    ``proj``, the audio model its encoder (``encoder``, a list of
+    ``encoder_layers`` blocks, and ``enc_ln``)."""
     kind = _layer_kind(cfg)
 
     def layer():
@@ -133,6 +156,14 @@ def init_params(gen: torch.Generator, cfg: ModelConfig) -> Params:
     }
     if cfg.family == "hybrid":
         params["shared"] = block_init(gen, cfg, "dense")
+    if cfg.family == "vlm":
+        params["proj"] = dense_init(gen, cfg.d_model, cfg.d_model,
+                                    cfg.torch_dtype, with_bias=True)
+    if cfg.family == "audio":
+        params["encoder"] = [block_init(gen, cfg, "enc")
+                             for _ in range(cfg.encoder_layers)]
+        params["enc_ln"] = rmsnorm_init(cfg.d_model, cfg.torch_dtype,
+                                        gen.device)
     return params
 
 
@@ -186,17 +217,27 @@ def _attn_kw(cfg: ModelConfig, window: int) -> Dict[str, Any]:
 
 def _block_fwd(p_l, h, positions, cfg: ModelConfig, kind: str, window: int,
                backend: str, branch: int = 1,
-               masks: Optional[Dict[str, torch.Tensor]] = None):
+               masks: Optional[Dict[str, torch.Tensor]] = None,
+               enc_out: Optional[torch.Tensor] = None, causal: bool = True):
     """One layer: the full block (branch 1), or the supernet's bottleneck
     (2: the MLP's / experts' hidden units or the SSM state masked to
     half) or lite branch (3: half the attention or SSM heads) ->
-    (h, the MoE aux loss or None)."""
+    (h, the MoE aux loss or None).  An ``encdec`` layer attends to
+    ``enc_out`` after its self attention; an encoder block is a
+    ``dense`` one with ``causal=False``."""
     bottle, lite = branch == 2, branch == 3
-    if kind in ("dense", "moe"):
+    if kind in ("dense", "moe", "encdec"):
         h = h + attn.self_attention(
-            p_l["attn"], rmsnorm(p_l["ln1"], h), positions,
+            p_l["attn"], rmsnorm(p_l["ln1"], h), positions, causal=causal,
             head_mask=masks["head"] if lite else None, backend=backend,
             **_attn_kw(cfg, window))
+        if kind == "encdec":
+            h = h + attn.cross_attention(
+                p_l["xattn"], rmsnorm(p_l["lnx"], h),
+                attn.encode_kv(p_l["xattn"], enc_out,
+                               num_kv_heads=cfg.num_kv_heads),
+                num_heads=cfg.num_heads, num_kv_heads=cfg.num_kv_heads,
+                head_dim=cfg.hd)
         x = rmsnorm(p_l["ln2"], h)
         if kind == "moe":
             y, a = moe_mod.moe_apply(
@@ -218,14 +259,14 @@ def _shared_fires(cfg: ModelConfig, li: int) -> bool:
 
 
 def _layer_fwd(p_l, h, positions, cfg: ModelConfig, kind: str, window: int,
-               backend: str, branch: int, masks, shared):
+               backend: str, branch: int, masks, shared, enc_out):
     """Layer ``p_l`` on its branch (0: the identity), then the shared
     block ``shared`` where it is not None -> (h, the MoE aux loss or
     None)."""
     a = None
     if branch:
         h, a = _block_fwd(p_l, h, positions, cfg, kind, window, backend,
-                          branch, masks)
+                          branch, masks, enc_out)
     if shared is not None:
         h = _block_fwd(shared, h, positions, cfg, "dense", window,
                        backend)[0]
@@ -233,35 +274,59 @@ def _layer_fwd(p_l, h, positions, cfg: ModelConfig, kind: str, window: int,
 
 
 def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
-            choice_key=None, window: int = 0, backend: str = "kernel",
-            remat: bool = False, return_hidden: bool = False,
-            return_aux: bool = False):
+            prefix: Optional[torch.Tensor] = None, choice_key=None,
+            window: int = 0, backend: str = "kernel", remat: bool = False,
+            return_hidden: bool = False, return_aux: bool = False):
     """Full-sequence forward.  tokens: (B, S) integers -> logits
     (B, S, V), or the final hidden states (B, S, d) with
-    ``return_hidden``; with ``return_aux``, a pair of that and the MoE
-    load-balance loss summed over the layers (float32; 0 for the other
-    families), as the JAX package's forward returns it beside its
-    optional cache.  ``backend`` routes attention, the SSD scan and the
+    ``return_hidden``, over the token positions only.  ``prefix``, which
+    the VLM and audio families need and the others refuse: (B, P, d)
+    patch embeddings (VLM; projected by ``proj`` and put before the
+    tokens) or (B, F, d) frame embeddings (audio; through ``encode`` on
+    the same backend, without checkpoints).  With ``return_aux``, a pair
+    of that and the MoE load-balance loss summed over the layers
+    (float32; 0 for the other families), as the JAX package's forward
+    returns it beside its optional cache.  ``backend`` routes attention, the SSD scan and the
     expert FFN.  A supernet needs ``choice_key``, one host int per layer:
     layer l runs branch ``choice_key[l]`` (0 skips it), from
     ``params["layers"][l][choice_key[l] - 1]``; only the selected
     branches are read (the others may be None).  The hybrid's shared
     block runs after its layers whatever their branch, unmasked.
 
-    ``remat`` runs each layer, with the shared block where it follows
-    the layer, under non-reentrant ``torch.utils.checkpoint``, so the
-    backward pass recomputes its activations (the JAX package's
+    ``remat`` runs each decoder layer, with the shared block where it
+    follows the layer, under non-reentrant ``torch.utils.checkpoint``, so
+    the backward pass recomputes its activations (the JAX package's
     ``jax.checkpoint`` of its scan body), on the plain stack and on a
-    supernet's selected branches alike.  The JAX package's ``unroll``
-    (an option of its layer scan) has no counterpart in this Python
-    loop, and its ``prefix`` belongs to the VLM and audio families, which
-    are not ported."""
+    supernet's selected branches alike.  An audio supernet raises
+    ``ValueError``, as the JAX package's branch functions do for its
+    layers.  The JAX package's ``unroll`` (an option of its layer scan)
+    has no counterpart in this Python loop."""
     kind = _layer_kind(cfg)
     kops.check_backend(backend)
+    if cfg.supernet and kind == "encdec":
+        raise ValueError(f"{cfg.name}: a supernet of {kind!r} layers is "
+                         "not supported (as in the JAX package)")
     b, s = tokens.shape
     h = embed(params["embed"], tokens)
-    positions = torch.arange(s, dtype=torch.int32,
-                             device=h.device).expand(b, s)
+    n_prefix, enc_out = 0, None
+    if cfg.family in ("vlm", "audio"):
+        if prefix is None:
+            raise ValueError(f"{cfg.name}: family {cfg.family!r} needs a "
+                             "prefix")
+        if cfg.family == "vlm":
+            h = torch.cat([dense(params["proj"], prefix.to(h.dtype)), h],
+                          dim=1)
+            n_prefix = prefix.shape[1]
+        else:
+            enc_out = encode(params, cfg, prefix, backend=backend)
+            h = h + sinusoidal_positions(s, cfg.d_model, h.dtype,
+                                         device=h.device)[None]
+    elif prefix is not None:
+        raise ValueError(f"{cfg.name}: prefix given to a model of family "
+                         f"{cfg.family!r}")
+    total = h.shape[1]
+    positions = torch.arange(total, dtype=torch.int32,
+                             device=h.device).expand(b, total)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     if cfg.supernet:
         if choice_key is None:
@@ -290,20 +355,45 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
         if not branch and shared is None:
             continue
         h, a = layer(p_l, h, positions, cfg, kind, window, backend,
-                     branch, masks, shared)
+                     branch, masks, shared, enc_out)
         if a is not None:
             aux = aux + a
-    h = rmsnorm(params["final_ln"], h)
+    h = rmsnorm(params["final_ln"], h)[:, n_prefix:]
     out = h if return_hidden else unembed(params["embed"], h)
     return (out, aux) if return_aux else out
 
 
+def encode(params: Params, cfg: ModelConfig, frames: torch.Tensor, *,
+           backend: str = "kernel") -> torch.Tensor:
+    """The audio model's encoder: (B, F, d) stub frame embeddings, cast
+    to the config's dtype, plus sinusoidal positions, through the
+    ``encoder`` blocks, each bidirectional on ``backend`` (K3 with
+    ``causal=False`` on the kernel route), then ``enc_ln`` -> (B, F,
+    d)."""
+    if cfg.family != "audio":
+        raise ValueError(f"{cfg.name}: family {cfg.family!r} has no "
+                         "encoder")
+    kops.check_backend(backend)
+    h = frames.to(cfg.torch_dtype)
+    b, f, _ = h.shape
+    h = h + sinusoidal_positions(f, cfg.d_model, h.dtype,
+                                 device=h.device)[None]
+    positions = torch.arange(f, dtype=torch.int32,
+                             device=h.device).expand(b, f)
+    for p_l in params["encoder"]:
+        h = _block_fwd(p_l, h, positions, cfg, "dense", 0, backend,
+                       causal=False)[0]
+    return rmsnorm(params["enc_ln"], h)
+
+
 def init_cache(params: Params, cfg: ModelConfig, batch: int,
-               cache_len: int) -> Params:
+               cache_len: int, enc_len: int = 0) -> Params:
     """An empty decode cache: ``t`` (the next position, a host int) and
-    one KV ring (dense, moe) or conv/state record (ssm, hybrid) per
-    layer; the hybrid's also one KV ring per application point of its
-    shared block (``"shared"``)."""
+    one KV ring (dense, moe, vlm, audio) or conv/state record (ssm,
+    hybrid) per layer; the audio model's rings also hold the layer's
+    cross K/V, ``cross_k`` / ``cross_v`` (zeros of (B, enc_len, Kh,
+    D)); the hybrid's cache also one KV ring per application point of
+    its shared block (``"shared"``)."""
     kind = _serving_kind(cfg)
     dt = cfg.torch_dtype
     dev = params["embed"]["table"].device
@@ -314,6 +404,12 @@ def init_cache(params: Params, cfg: ModelConfig, batch: int,
 
     if kind in ("dense", "moe"):
         layers = [kv() for _ in range(cfg.num_layers)]
+    elif kind == "encdec":
+        shape = (batch, enc_len, cfg.num_kv_heads, cfg.hd)
+        layers = [{**kv(), "cross_k": torch.zeros(shape, dtype=dt,
+                                                  device=dev),
+                   "cross_v": torch.zeros(shape, dtype=dt, device=dev)}
+                  for _ in range(cfg.num_layers)]
     else:
         layers = [ssm_mod.init_ssm_cache(batch, cfg, dt, dev)
                   for _ in range(cfg.num_layers)]
@@ -325,12 +421,24 @@ def init_cache(params: Params, cfg: ModelConfig, batch: int,
 
 
 def prefill_cache(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
-                  window: int = 0, cache_len: int = 0) -> Params:
+                  window: int = 0, cache_len: int = 0,
+                  enc_out: Optional[torch.Tensor] = None) -> Params:
     """Build a decode cache by replaying the sequence through
     ``decode_step``, as the JAX package's reference path does (no kernel
-    runs)."""
+    runs).  The audio model needs ``enc_out`` (``encode``'s output),
+    from which each layer's cross K/V is computed once, first.  It takes
+    no prefix: a VLM's cache holds the tokens alone, as the JAX
+    package's (which ignores the prefix it is given)."""
     b, s = tokens.shape
-    cache = init_cache(params, cfg, b, cache_len or s)
+    if (enc_out is not None) != (_layer_kind(cfg) == "encdec"):
+        raise ValueError(f"{cfg.name}: enc_out is for the audio family, "
+                         "which needs it")
+    cache = init_cache(params, cfg, b, cache_len or s,
+                       enc_len=0 if enc_out is None else enc_out.shape[1])
+    if enc_out is not None:
+        for p_l, c_l in zip(params["layers"], cache["layers"]):
+            c_l["cross_k"], c_l["cross_v"] = attn.encode_kv(
+                p_l["xattn"], enc_out, num_kv_heads=cfg.num_kv_heads)
     for i in range(s):
         _, cache = decode_step(params, cfg, tokens[:, i:i + 1], cache,
                                window=window)
@@ -343,18 +451,28 @@ def decode_step(params: Params, cfg: ModelConfig, token: torch.Tensor,
     """One decode step.  token: (B, 1) -> (logits (B, 1, V), cache).  The
     cache is updated in place (KV slots, per-layer records, the hybrid's
     per application point, ``t``) and returned.  No kernel launches:
-    attention reads the cache with einsums, and the MoE takes its torch
-    route (routing over the B tokens of the step)."""
+    attention (self and cross) reads the cache with einsums, and the MoE
+    takes its torch route (routing over the B tokens of the step).  The
+    audio model's token gets the sinusoid of position ``t``."""
     kind = _serving_kind(cfg)
     t = cache["t"]
     h = embed(params["embed"], token)
+    if cfg.family == "audio":
+        h = h + sinusoidal_positions(1, cfg.d_model, h.dtype, offset=t,
+                                     device=h.device)[None]
     for li, p_l in enumerate(params["layers"]):
         c_l = cache["layers"][li]
-        if kind in ("dense", "moe"):
+        if kind in ("dense", "moe", "encdec"):
             y, c_l = attn.decode_self_attention(
                 p_l["attn"], rmsnorm(p_l["ln1"], h), c_l, t,
                 **_attn_kw(cfg, window))
             h = h + y
+            if kind == "encdec":
+                h = h + attn.cross_attention(
+                    p_l["xattn"], rmsnorm(p_l["lnx"], h),
+                    (c_l["cross_k"], c_l["cross_v"]),
+                    num_heads=cfg.num_heads, num_kv_heads=cfg.num_kv_heads,
+                    head_dim=cfg.hd)
             if kind == "moe":
                 h = h + moe_mod.moe_apply(p_l["moe"], rmsnorm(p_l["ln2"], h),
                                           cfg, backend="torch")[0]

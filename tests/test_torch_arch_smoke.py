@@ -3,7 +3,9 @@
 smoke config (2 layers, d_model 128, at most 4 experts) runs a forward,
 an SGD train step (``launch/train.py``) and a decode step on the CPU,
 with finite outputs of the expected shapes; the full configs carry the
-published spec.
+published spec.  The VLM and audio models get a prefix of
+``num_prefix`` embeddings (patches, frames), as the JAX package's tests
+give theirs.
 
 Torch only, but for one forward-parity case each of chatglm3-6b (2d
 RoPE, 2 KV heads, QKV bias) and starcoder2-3b (its sliding window)
@@ -33,15 +35,19 @@ from repro_torch.models import transformer as tr  # noqa: E402
 BATCH, SEQ = 2, 64
 ARCHS = ["qwen1.5-0.5b", "chatglm3-6b", "starcoder2-3b", "deepseek-67b",
          "mamba2-780m", "granite-moe-1b-a400m", "llama4-scout-17b-a16e",
-         "zamba2-2.7b"]
+         "zamba2-2.7b", "internvl2-1b", "whisper-large-v3"]
 TOL = 1e-4
 
 
 def make_batch(cfg, seed):
     rng = np.random.default_rng(seed)
-    return {k: torch.from_numpy(rng.integers(0, cfg.vocab_size,
-                                             (BATCH, SEQ)).astype(np.int32))
-            for k in ("tokens", "labels")}
+    batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                              (BATCH, SEQ)).astype(np.int32))
+             for k in ("tokens", "labels")}
+    if cfg.family in ("vlm", "audio"):
+        batch["prefix"] = torch.from_numpy(rng.normal(
+            0.0, 0.1, (BATCH, cfg.num_prefix, cfg.d_model)).astype(np.float32))
+    return batch
 
 
 @pytest.fixture(scope="module", params=ARCHS)
@@ -55,8 +61,9 @@ def arch_setup(request):
 
 def test_forward_shapes_and_finite(arch_setup):
     arch, cfg, params = arch_setup
-    logits, aux = tr.forward(params, cfg, make_batch(cfg, 1)["tokens"],
-                             return_aux=True)
+    batch = make_batch(cfg, 1)
+    logits, aux = tr.forward(params, cfg, batch["tokens"],
+                             prefix=batch.get("prefix"), return_aux=True)
     assert logits.shape == (BATCH, SEQ, cfg.vocab_size), arch
     assert torch.isfinite(logits).all(), arch
     assert torch.isfinite(aux), arch
@@ -76,7 +83,8 @@ def test_train_step_updates_and_finite(arch_setup):
 
 def test_decode_step_finite(arch_setup):
     arch, cfg, params = arch_setup
-    cache = tr.init_cache(params, cfg, BATCH, 32)
+    enc_len = cfg.num_prefix if cfg.family == "audio" else 0
+    cache = tr.init_cache(params, cfg, BATCH, 32, enc_len=enc_len)
     tok = torch.zeros((BATCH, 1), dtype=torch.int32)
     logits, cache = tr.decode_step(params, cfg, tok, cache)
     assert logits.shape == (BATCH, 1, cfg.vocab_size), arch
@@ -97,6 +105,8 @@ def test_full_config_matches_assignment(arch_setup):
         "qwen1.5-0.5b": (24, 1024, 16, 16, 2816, 151936),
         "mamba2-780m": (48, 1536, 0, 0, 0, 50280),
         "zamba2-2.7b": (54, 2560, 32, 32, 10240, 32000),
+        "internvl2-1b": (24, 896, 14, 2, 4864, 151655),
+        "whisper-large-v3": (32, 1280, 20, 20, 5120, 51866),
     }[arch]
     got = (full.num_layers, full.d_model, full.num_heads, full.num_kv_heads,
            full.d_ff, full.vocab_size)
@@ -119,6 +129,25 @@ def test_moe_ssm_and_attention_extras():
     zamba2 = get_config("zamba2-2.7b")
     assert (zamba2.attn_every, zamba2.hd, zamba2.ssm_head_dim,
             zamba2.ssm_state) == (6, 80, 80, 64)
+    internvl = get_config("internvl2-1b")
+    assert (internvl.num_prefix, internvl.hd, internvl.qkv_bias) == \
+        (256, 64, True)
+    whisper = get_config("whisper-large-v3")
+    assert (whisper.encoder_layers, whisper.num_prefix, whisper.rope_style,
+            whisper.hd) == (32, 1500, "none", 64)
+
+
+def test_vlm_prefix_shapes():
+    """``tests/test_models.py::test_vlm_prefix_shapes`` on the port: the
+    logits (and ``return_hidden``) cover the token positions only."""
+    cfg = get_config("internvl2-1b", smoke=True)
+    params = tr.init_params(torch.Generator().manual_seed(0), cfg)
+    toks = torch.zeros((2, 16), dtype=torch.int32)
+    patches = torch.ones((2, cfg.num_prefix, cfg.d_model))
+    logits = tr.forward(params, cfg, toks, prefix=patches)
+    assert logits.shape == (2, 16, cfg.vocab_size)
+    hidden = tr.forward(params, cfg, toks, prefix=patches, return_hidden=True)
+    assert hidden.shape == (2, 16, cfg.d_model)
 
 
 @pytest.mark.parametrize("arch", ["chatglm3-6b", "starcoder2-3b"])

@@ -241,11 +241,11 @@ def test_model_config_matches_reference():
         p = get_config("cifar-supernet", smoke=smoke)
         assert dataclasses.asdict(r) == dataclasses.asdict(p)
         assert p.torch_dtype == torch.float32
-        assert (dataclasses.asdict(get_config("zamba2-2.7b", smoke=smoke))
-                == dataclasses.asdict(ref_get_config("zamba2-2.7b",
-                                                     smoke=smoke)))
-    with pytest.raises(ValueError, match="not yet ported"):
-        get_config("internvl2-1b")
+        for arch in ("zamba2-2.7b", "internvl2-1b", "whisper-large-v3"):
+            assert (dataclasses.asdict(get_config(arch, smoke=smoke))
+                    == dataclasses.asdict(ref_get_config(arch, smoke=smoke)))
+    with pytest.raises(ValueError, match="unknown architecture"):
+        get_config("gpt-2")
 
 
 # ---------------------------------------------------------------------------

@@ -321,15 +321,6 @@ def test_choice_key_is_checked():
         tr.decode_step(params, cfg, toks[:, :1], {"t": 0, "layers": []})
 
 
-@pytest.mark.parametrize("family", ["vlm", "audio"])
-def test_unported_supernet_families_raise_naming_their_roadmap_item(family):
-    cfg = get_config("qwen1.5-0.5b", smoke=True).replace(supernet=True,
-                                                         family=family)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
-        tr.init_params(torch.Generator().manual_seed(0), cfg)
-    with pytest.raises(ValueError, match="supernet=True"):
-        lm_supernet_api(cfg)
-
 
 def test_make_api_dispatches_by_family(apis):
     cnn = make_api(get_config("cifar-supernet", smoke=True))

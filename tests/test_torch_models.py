@@ -406,9 +406,3 @@ def test_unported_model_kinds_raise(arch, match):
     with pytest.raises(ValueError, match=match):
         tr.init_params(torch.Generator().manual_seed(0), get_config(arch))
 
-
-@pytest.mark.parametrize("family", ["vlm", "audio"])
-def test_unported_families_raise_naming_their_roadmap_item(family):
-    cfg = get_config("qwen1.5-0.5b", smoke=True).replace(family=family)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
-        tr.init_params(torch.Generator().manual_seed(0), cfg)
