@@ -225,10 +225,39 @@ Phases, each fatal on failure:
    width and 12 of its 54 layers (two application points of the shared
    block), bf16, AdamW, remat, 4 steps of 2 x 4096 tokens on the chunked
    route: losses finite and falling, no kernel launched, a gradient on
-   every leaf of the shared block.
+   every leaf of the shared block;
+15. the mesh (``backend="mesh"``, ``launch/mesh|policy``): (a) phase 11's
+   three fused runs (kernel route, torch route, ``"int8:kernel"``
+   uplink) on ``make_host_mesh()`` (one device, cuda:0), and one
+   non-fused run on each route, each bit for bit the fused ``vmap`` run
+   of phase 11 on its route (keys, CommStats, masters, dispatches,
+   launches, K1's variants; the mesh's kernel route takes the same
+   partly fused path fused or not), generation 2's ``round_s`` and peak
+   memory beside ``vmap``'s; (b) the kernel route on a mesh that names
+   cuda:0 three times (population 4 padded to 6): keys and CommStats
+   equal to (a)'s, 3 K1 launches, its master gap logged (the float32
+   sums are grouped per device), and one generation-1 ``train_fill`` on
+   the torch route within 1e-6 of ``vmap``'s; (c) (a)'s fused kernel route
+   with a jsonl telemetry sink, bit for bit the run off, with the JAX
+   mesh's program names (``train_uploads``, ``fused_eval_shared``: one
+   signature each, in generation 1), then fused kernel-route ``vmap``
+   and ``mesh`` runs in turns (vmap, mesh, mesh, vmap), nothing of an
+   earlier run alive: generation 2's ``round_s`` and the peak memory
+   above what the card held before each; (d) under ``policy.set_mesh(
+   make_host_mesh())``: granite-moe-1b-a400m's prefill of 4 x 1024
+   tokens at full width on the kernel route, bf16 and float32, with 24
+   K3 and no K5 (the expert-parallel MoE runs its products as einsums)
+   within MESH_PREFILL_TOL (1e-3 of the largest logit in bf16, 1e-5 in
+   float32) of the same prefill with no mesh (24 K3, 72 K5), both timed
+   in turns; qwen1.5-0.5b's ``greedy_generate`` at smoke size in
+   float32 with the no-mesh tokens, and at full width in bf16 (the
+   pinned decode rounds its probabilities to bf16) with its token
+   agreement and decode step time logged; (e) the ``serve_batched``
+   example at its defaults and ``federated_nas_cifar`` at its default
+   size on ``--engine-backend mesh`` (6 K1 launches, all in place).
 
-Prints the traced rounds and the training numbers as one JSON line, the
-kernels as one JSON line,
+Prints the traced rounds, the training and the mesh numbers as one JSON
+line, the kernels as one JSON line,
 then the ``nvidia-smi`` line, then ``{"ok": true, "device": {...}}`` as
 the last line.  Exits non-zero
 without that line if any phase fails or no CUDA device is present.
@@ -236,6 +265,7 @@ without that line if any phase fails or no CUDA device is present.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import math
 import subprocess
@@ -257,17 +287,19 @@ from repro_torch.data import ClientDataset, make_classification, \
     make_clients, make_lm_stream, partition_iid  # noqa: E402
 from repro_torch.comm import make_codec  # noqa: E402
 from repro_torch.engine import FedAvgBaseline, FedEngine, LoopBackend, \
-    OfflineNas, RunConfig, VmapBackend, backends  # noqa: E402
+    MeshBackend, OfflineNas, RunConfig, VmapBackend, backends  # noqa: E402
 from repro_torch.core.flops import train_flops  # noqa: E402
 from repro_torch.examples import federated_nas_cifar, quickstart, \
-    train_lm  # noqa: E402
+    serve_batched, train_lm  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
 from repro_torch.kernels import expert_gemm as egemm  # noqa: E402
 from repro_torch.kernels import fill_aggregate as kfa  # noqa: E402
 from repro_torch.kernels import flash_attention as flash  # noqa: E402
 from repro_torch.kernels import quantize as kq  # noqa: E402
 from repro_torch.kernels import ssd_scan as kssd  # noqa: E402
+from repro_torch.launch import policy  # noqa: E402
 from repro_torch.launch import train as lm_train  # noqa: E402
+from repro_torch.launch.mesh import make_host_mesh  # noqa: E402
 from repro_torch.launch.serve import greedy_generate, make_decode_step, \
     make_prefill_step  # noqa: E402
 from repro_torch.models import moe  # noqa: E402
@@ -895,8 +927,11 @@ def check_one_fill(api, clients, label: str, cfg_kw: dict) -> None:
 def check_vmap(api, clients, loop_run, loop_peak: int, card: str
                ) -> tuple:
     """``backend="vmap"`` at full width against phase 5's ``loop`` run.
-    Returns K1's in-place launches in the fused kernel-route run and that
-    run as phase 12's reference (``reference``)."""
+    Returns K1's in-place launches in the fused kernel-route run, and the
+    three fused runs (``reference``, with generation 2's ``round_s`` and
+    the peak memory) by route, ``"kernel"``, ``"torch"`` and ``"int8"``:
+    phase 12 holds its telemetry twin to the first, phase 15 the mesh's
+    runs to all three."""
     gens, pop = RUN["generations"], RUN["population"]
     n_fill = gens + 1
     fused_bound = 2 * gens + 1
@@ -913,22 +948,24 @@ def check_vmap(api, clients, loop_run, loop_peak: int, card: str
     nonfused = dict(vm, aggregate_backend="kernel", fused=False)
     cases = [
         ("vmap fused, kernel route", dict(vm, aggregate_backend="kernel"),
-         n_fill, 0, fused_bound + n_fill, True),
+         n_fill, 0, fused_bound + n_fill, True, "kernel"),
         ("vmap fused, torch route", dict(vm, aggregate_backend="torch"),
-         0, 0, fused_bound, True),
+         0, 0, fused_bound, True, "torch"),
         ("vmap non-fused, kernel route", nonfused, n_fill,
-         n_fill * (pop - 1), 2 * pop * (n_fill + gens), False),
+         n_fill * (pop - 1), 2 * pop * (n_fill + gens), False, None),
     ]
     rows = [("loop (phase 5)", loop_run.reports[-1].round_s, loop_peak)]
-    in_place_launches = fused_ref = None
+    in_place_launches = None
+    refs = {}
     for (label, cfg_kw, in_place, out_of_place, dispatches,
-         strict) in cases:
+         strict, ref_key) in cases:
         result, eng, peak = timed_run(api, clients, label, cfg_kw)
         expect_launches(label, {"fill_aggregate": in_place + out_of_place})
         expect_fill_variants(label, in_place, out_of_place)
         if in_place_launches is None:
             in_place_launches = kfa.VARIANT_LAUNCHES["in_place"]
-            fused_ref = reference(result, eng)
+        if ref_key is not None:
+            refs[ref_key] = dict(reference(result, eng), peak=peak)
         log(f"{label}: dispatches {eng.backend.dispatches}, peak device "
             f"memory {peak} B")
         if eng.backend.dispatches != dispatches:
@@ -958,6 +995,7 @@ def check_vmap(api, clients, loop_run, loop_peak: int, card: str
         raise AssertionError(f"{label}: master donation is on")
     if eng.backend.dispatches != fused_bound + n_fill:
         raise AssertionError(f"{label}: {eng.backend.dispatches} dispatches")
+    refs["int8"] = dict(reference(vmap8, eng), peak=peak)
     # the strategies' init (seed 0), from which the updates are measured
     init = api.init(torch.Generator().manual_seed(0))
     same_trajectory(loop8, vmap8, f"{label} vs loop", math.inf)
@@ -972,7 +1010,7 @@ def check_vmap(api, clients, loop_run, loop_peak: int, card: str
     for label, round_s, peak in rows:
         log(f"generation 2 round_s on {card}: {label}: {round_s!r} s, peak "
             f"device memory {peak} B")
-    return in_place_launches, fused_ref
+    return in_place_launches, refs
 
 
 # ---------------------------------------------------------------------------
@@ -1326,6 +1364,10 @@ LOGIT_TOL = {torch.bfloat16: 0.15, torch.float32: 1e-3}
 CHUNKED_TOL = {torch.bfloat16: LOGIT_TOL[torch.bfloat16],
                torch.float32: 1e-5}
 REPLAY_TOL = 1e-3       # smoke size, float32: prefill vs decode replay
+# granite's prefill under a one-device mesh against none, of the largest
+# logit: the same computation, the expert products on cuBLAS einsums
+# instead of K5 (whose bf16 products equal cuBLAS's bit for bit)
+MESH_PREFILL_TOL = {torch.bfloat16: 1e-3, torch.float32: 1e-5}
 # K5 against its plain version, (rtol, atol), both after dividing by the
 # output's largest magnitude: in float32 both sum up to 1024 exact
 # products in another order; in bfloat16 they may differ by one rounding
@@ -2827,6 +2869,333 @@ def check_train_clis(card: str) -> None:
         log(f"{label}: {time.perf_counter() - t0!r} s on {card}")
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the mesh
+# ---------------------------------------------------------------------------
+
+MESH_WAYS = 3           # (b): a mesh that names cuda:0 this many times
+MESH_BF16_SMOKE = "qwen1.5-0.5b"
+# (label, run config, phase 11's run it equals bit for bit).  The mesh's
+# kernel route is one train_uploads call per shape bucket whether fused
+# or not (the JAX package tests the route before ``fused``), so its
+# non-fused run equals its fused one; on the torch route a non-fused
+# run is one fill_partial call per bucket: with one bucket, the fused
+# run's bodies in its order
+MESH_RUNS = (
+    ("mesh fused, kernel route", dict(aggregate_backend="kernel"), "kernel"),
+    ("mesh fused, torch route", dict(aggregate_backend="torch"), "torch"),
+    ("mesh fused, kernel route, int8 uplink",
+     dict(uplink_codec="int8:kernel"), "int8"),
+    ("mesh non-fused, kernel route",
+     dict(aggregate_backend="kernel", fused=False), "kernel"),
+    ("mesh non-fused, torch route",
+     dict(aggregate_backend="torch", fused=False), "torch"),
+)
+
+
+def innermost_backend(eng):
+    backend = eng.backend
+    while hasattr(backend, "inner"):
+        backend = backend.inner
+    return backend
+
+
+def held_to(ref: dict, result, eng, label: str) -> None:
+    """``result`` (launch counts read just after its run) against a
+    ``reference``: keys and CommStats equal, masters bit for bit,
+    dispatches, launches and K1's variants equal."""
+    same_trajectory(ref["result"], result, f"{label} vs vmap", 0.0)
+    bitwise_master(ref["result"].extras["final_master"],
+                   result.extras["final_master"], label)
+    for what, got, want in (
+            ("dispatches", innermost_backend(eng).dispatches,
+             ref["dispatches"]),
+            ("launches", dict(ops.LAUNCHES), ref["launches"]),
+            ("fill_aggregate variants", dict(kfa.VARIANT_LAUNCHES),
+             ref["variants"])):
+        if got != want:
+            raise AssertionError(f"{label}: {what} {got}, vmap's {want}")
+
+
+def check_mesh_runs(api, clients, vmap_refs: dict, card: str) -> dict:
+    """(a) ``backend="mesh"`` on ``make_host_mesh()``, one device
+    (cuda:0), against phase 11's fused ``vmap`` runs bit for bit; (b)
+    the kernel route on a mesh that names cuda:0 MESH_WAYS times
+    (population 4 padded to 6): keys and CommStats equal to (a)'s, and
+    one generation-1 ``train_fill`` on the torch route (where the sum
+    order changes) within TOL of ``vmap``'s; (c) (a)'s fused kernel route again with telemetry on, bit
+    for bit, with the JAX mesh's program names.  Returns the numbers for
+    the JSON line."""
+    mesh = make_host_mesh()
+    if mesh.size != 1 or mesh.axis_devices("data") != [
+            torch.device("cuda:0")]:
+        raise AssertionError(f"make_host_mesh() on one card: {mesh}")
+    out = {"round_s": {}, "peak": {}}
+    for ref_key, ref in vmap_refs.items():
+        label = f"vmap fused ({ref_key}, phase 11)"
+        out["round_s"][label] = ref["result"].reports[-1].round_s
+        out["peak"][label] = ref["peak"]
+    mesh_ref = None
+    for label, kw, ref_key in MESH_RUNS:
+        result, eng, peak = timed_run(api, clients, label,
+                                      dict(RUN, backend="mesh", **kw))
+        backend = innermost_backend(eng)
+        if not isinstance(backend, MeshBackend) or backend.num_devices != 1:
+            raise AssertionError(f"{label}: backend {backend}")
+        held_to(vmap_refs[ref_key], result, eng, label)
+        log(f"{label}: bit for bit phase 11's fused vmap run ({ref_key}); "
+            f"dispatches {backend.dispatches}, launches {dict(ops.LAUNCHES)}"
+            f", K1 by variant {dict(kfa.VARIANT_LAUNCHES)}; generation 2 "
+            f"round_s {result.reports[-1].round_s!r} s (vmap "
+            f"{vmap_refs[ref_key]['result'].reports[-1].round_s!r}), peak "
+            f"{peak} B (vmap {vmap_refs[ref_key]['peak']}) on {card}")
+        out["round_s"][label] = result.reports[-1].round_s
+        out["peak"][label] = peak
+        if mesh_ref is None:
+            mesh_ref = reference(result, eng)
+        del result, eng
+
+    # (b) MESH_WAYS devices, all cuda:0
+    label = f"mesh fused, kernel route, {MESH_WAYS}-way on cuda:0"
+    cfg = RunConfig(**dict(RUN, backend="mesh", aggregate_backend="kernel"))
+    ways = make_host_mesh(["cuda:0"] * MESH_WAYS)
+    torch.cuda.reset_peak_memory_stats()
+    eng = FedEngine(api, clients, cfg,
+                    backend=MeshBackend(api, clients, cfg, mesh=ways))
+    zero_launches()
+    result = eng.run()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    check_run(result, label)
+    n_fill = RUN["generations"] + 1
+    expect_launches(label, {"fill_aggregate": n_fill})
+    expect_fill_variants(label, n_fill, 0)
+    if eng.backend.dispatches != mesh_ref["dispatches"]:
+        raise AssertionError(f"{label}: {eng.backend.dispatches} dispatches")
+    gap = same_trajectory(mesh_ref["result"], result, f"{label} vs 1-way",
+                          None)
+    out["round_s"][label] = result.reports[-1].round_s
+    out["peak"][label] = peak
+    out["ways_master_gap"] = gap
+    log(f"{label}: generation 2 round_s {result.reports[-1].round_s!r} s, "
+        f"peak {peak} B on {card}")
+    del result, eng
+    out["ways_one_fill"] = check_one_fill_mesh(api, clients, ways, "torch")
+
+    # (c) telemetry on = off on (a)'s fused kernel route
+    label = "mesh fused, kernel route, telemetry on"
+    counts = {"train_uploads": 1, "fused_eval_shared": 1}
+    with tempfile.TemporaryDirectory() as tmp:
+        jsonl = Path(tmp) / "mesh.jsonl"
+        result, eng, _ = telemetry_twin(
+            api, clients, label, dict(RUN, backend="mesh",
+                                      aggregate_backend="kernel"),
+            {"sink": f"jsonl:{jsonl}"}, mesh_ref)
+        eng.telemetry.sink.close()
+        lines = jsonl.read_text().splitlines()
+    tel = result.telemetry
+    recompiles = [e.recompiles for e in tel.events]
+    seen = {p for e in tel.events for p in e.spans}
+    missing = [p for p in ("fill_train/download", "eval/host_fetch")
+               if p not in seen]
+    if (tel.trace_counts != counts
+            or recompiles != [counts] + [{}] * (RUN["generations"] - 1)
+            or missing or len(lines) != RUN["generations"]):
+        raise AssertionError(f"{label}: trace_counts {tel.trace_counts}, "
+                             f"recompiles {recompiles}, missing spans "
+                             f"{missing}, {len(lines)} jsonl lines")
+    log(f"{label}: bit for bit the run off; trace_counts "
+        f"{tel.trace_counts}; spans {sorted(seen)}")
+    out["telemetry_trace_counts"] = tel.trace_counts
+    del result, eng
+    out["turns"] = mesh_turns(api, clients, card)
+    return out
+
+
+def mesh_turns(api, clients, card: str) -> dict:
+    """Fused kernel-route runs of ``vmap`` and ``mesh`` in turns (vmap,
+    mesh, mesh, vmap), each with nothing of an earlier run alive:
+    generation 2's ``round_s`` and the peak memory above what the card
+    held before the run (the runs of (a) are compared with phase 11's,
+    which ran while other references were alive)."""
+    out = {}
+    for backend in ("vmap", "mesh", "mesh", "vmap"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        before = torch.cuda.memory_allocated()
+        result, eng, peak = timed_run(
+            api, clients, f"{backend} fused, kernel route, in turns",
+            dict(RUN, backend=backend, aggregate_backend="kernel"))
+        row = out.setdefault(backend, {"round_s": [], "peak_above": []})
+        row["round_s"].append(result.reports[-1].round_s)
+        row["peak_above"].append(peak - before)
+        del result, eng
+    for backend, row in out.items():
+        log(f"{backend} fused, kernel route, in turns on {card}: generation "
+            f"2 round_s {row['round_s']!r} s, peak above the held memory "
+            f"{row['peak_above']} B")
+    return out
+
+
+def check_one_fill_mesh(api, clients, mesh, route: str) -> float:
+    """One ``train_fill`` at full width from the strategies' init, four
+    groups of two clients, on ``mesh`` against ``VmapBackend`` on the
+    same route within TOL: the uploads are the same, only the float32
+    sums of Algorithm 3 are grouped otherwise (per device, then across
+    devices; K1 with weight-0 rows)."""
+    master = {k: v.cuda() for k, v in
+              api.init(torch.Generator().manual_seed(0)).items()}
+    rng = np.random.default_rng(1)
+    keys = [rng.integers(0, 4, api.num_blocks) for _ in range(4)]
+    groups = [np.arange(2 * g, 2 * g + 2) for g in range(4)]
+    cfg = RunConfig(**dict(RUN, backend="mesh", aggregate_backend=route))
+    want = VmapBackend(api, clients, cfg).train_fill(master, keys, groups,
+                                                     0.01)
+    got = MeshBackend(api, clients, cfg, mesh=mesh).train_fill(
+        master, keys, groups, 0.01)
+    torch.cuda.synchronize()
+    diff = master_diff(want, got)
+    log(f"one train_fill on a {mesh.size}-way mesh, {route} route, against "
+        f"vmap's: master max abs diff {diff!r}")
+    if not diff <= TOL:
+        raise AssertionError(f"{mesh.size}-way mesh, {route} route: one "
+                             f"train_fill differs from vmap's by {diff}")
+    del master, want, got
+    torch.cuda.empty_cache()
+    return diff
+
+
+def under_mesh(mesh, fn):
+    """``fn()`` with ``mesh`` registered for the models, reset after."""
+    policy.set_mesh(mesh)
+    try:
+        return fn()
+    finally:
+        policy.set_mesh(None)
+
+
+def check_mesh_models(card: str) -> dict:
+    """(d) Under ``policy.set_mesh(make_host_mesh())``: granite's prefill
+    of 4 x 1024 tokens at full width on the kernel route, bf16 and
+    float32, takes the expert-parallel MoE (24 K3, no K5: its products
+    are einsums) within MESH_PREFILL_TOL of the same prefill with no
+    mesh (24 K3 and 72 K5); qwen's ``greedy_generate`` at smoke size in float32 gives
+    the no-mesh tokens, and at full width in bf16 (the pinned decode's
+    probabilities in bf16) its decode step time and token agreement are
+    logged."""
+    mesh = make_host_mesh()
+    arch = "granite-moe-1b-a400m"
+    out = {}
+    for dtype in ("bfloat16", "float32"):
+        cfg = get_config(arch).replace(dtype=dtype)
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        params = tr.init_params(gen, cfg)
+        batch = {"tokens": torch.randint(0, cfg.vocab_size, (REQUESTS, 1024),
+                                         generator=gen, device="cuda")}
+        step = make_prefill_step(cfg, backend="kernel")
+        label = f"{arch} prefill, {dtype}"
+        zero_launches()
+        plain = step(params, batch)
+        torch.cuda.synchronize()
+        expect_launches(f"{label}, no mesh", {"flash_attention": 24,
+                                              "expert_gemm": 72})
+        zero_launches()
+        meshed = under_mesh(mesh, lambda: step(params, batch))
+        torch.cuda.synchronize()
+        expect_launches(f"{label}, under the mesh", {"flash_attention": 24})
+        expect_variants(f"{label}, under the mesh", cfg,
+                        {"flash_attention": 24})
+        if not torch.isfinite(meshed).all():
+            raise AssertionError(f"{label}: non-finite logits under the mesh")
+        scale = float(plain.float().abs().max())
+        diff = float((meshed.float() - plain.float()).abs().max())
+        agree = float((meshed.argmax(-1) == plain.argmax(-1)).float().mean())
+        # in turns (none, mesh, mesh, none), each the median of 3: the
+        # prefill waits on the host, whose speed drifts
+        ms = {"no mesh": [], "mesh": []}
+        for name in ("no mesh", "mesh", "mesh", "no mesh"):
+            ms[name].append(under_mesh(
+                mesh if name == "mesh" else None,
+                lambda: median_ms(lambda: step(params, batch), 3, warmup=1)))
+        log(f"{label}: under the mesh vs none, last-token logits max abs "
+            f"diff {diff!r} ({diff / scale!r} of the largest; argmax "
+            f"agreement {agree!r}); prefill in turns {ms['mesh']!r} ms "
+            f"under the mesh (einsums), {ms['no mesh']!r} ms without (K5) "
+            f"on {card}")
+        tol = MESH_PREFILL_TOL[cfg.torch_dtype]
+        if not diff <= tol * scale:
+            raise AssertionError(f"{label}: mesh vs none {diff} > "
+                                 f"{tol} x {scale}")
+        out[f"granite_{dtype}"] = {"rel_diff": diff / scale, "ms": ms}
+        del params, plain, meshed
+        torch.cuda.empty_cache()
+
+    arch = MESH_BF16_SMOKE
+    for dtype, smoke in (("float32", True), ("bfloat16", False)):
+        cfg = get_config(arch, smoke=smoke).replace(dtype=dtype)
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        params = tr.init_params(gen, cfg)
+        prompt = torch.randint(0, cfg.vocab_size, (REQUESTS, GREEDY_PROMPT),
+                               generator=gen, device="cuda")
+        toks, secs = {}, {}
+        for name, m in (("no mesh", None), ("mesh", mesh)):
+            zero_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            toks[name] = under_mesh(m, lambda: greedy_generate(
+                params, cfg, prompt, NEW_TOKENS))
+            torch.cuda.synchronize()
+            secs[name] = time.perf_counter() - t0
+            expect_launches(f"{arch} greedy_generate, {dtype}, {name}", {})
+        steps = GREEDY_PROMPT - 1 + NEW_TOKENS
+        agree = float((toks["mesh"] == toks["no mesh"]).float().mean())
+        size = "smoke size" if smoke else "full width"
+        log(f"{arch} greedy_generate at {size}, {dtype}: token agreement "
+            f"mesh vs none {agree!r}; {steps} decode steps in "
+            f"{secs['mesh']!r} s under the mesh "
+            f"({secs['mesh'] / steps * 1e3!r} ms a step), "
+            f"{secs['no mesh']!r} s without on {card}")
+        if dtype == "float32" and not torch.equal(toks["mesh"],
+                                                  toks["no mesh"]):
+            raise AssertionError(f"{arch} greedy_generate, float32: the "
+                                 "mesh changed the tokens")
+        out[f"{arch}_{dtype}"] = {"agreement": agree,
+                                  "step_ms": {k: v / steps * 1e3
+                                              for k, v in secs.items()}}
+        del params
+        torch.cuda.empty_cache()
+    return out
+
+
+def check_mesh_examples(card: str) -> dict:
+    """(e) The serve_batched example at its defaults (smoke config, on
+    the card; decode launches nothing), and federated_nas_cifar at its
+    default size on ``--engine-backend mesh`` (one K1 launch a
+    train_fill, each in place: 6 in 5 generations)."""
+    out = {}
+    zero_launches()
+    t0 = time.perf_counter()
+    toks = serve_batched.main([])
+    torch.cuda.synchronize()
+    out["serve_batched_s"] = time.perf_counter() - t0
+    expect_launches("example serve_batched", {})
+    if toks.shape != (4, 32 + 24):
+        raise AssertionError(f"serve_batched: tokens {tuple(toks.shape)}")
+    with tempfile.TemporaryDirectory() as tmp:
+        zero_launches()
+        t0 = time.perf_counter()
+        federated_nas_cifar.main(["--out", tmp, "--engine-backend", "mesh"])
+        torch.cuda.synchronize()
+        out["federated_nas_cifar_mesh_s"] = time.perf_counter() - t0
+    expect_launches("example federated_nas_cifar, mesh",
+                    {"fill_aggregate": 6})
+    expect_fill_variants("example federated_nas_cifar, mesh", 6, 0)
+    log(f"examples on {card}: serve_batched {out['serve_batched_s']!r} s, "
+        f"federated_nas_cifar on the mesh "
+        f"{out['federated_nas_cifar_mesh_s']!r} s")
+    return out
+
+
 def main() -> int:
     t_start = time.perf_counter()
     # 1. device
@@ -2999,8 +3368,9 @@ def main() -> int:
         check_replay_smoke()
 
     # 11. the batched vmap backend at full width against phase 5's run
-    in_place_launches, refs["vmap"] = check_vmap(api, clients, kernel_run,
-                                                 main_peak, card)
+    in_place_launches, vmap_refs = check_vmap(api, clients, kernel_run,
+                                              main_peak, card)
+    refs["vmap"] = vmap_refs["kernel"]
     del kernel_run
 
     # 12. telemetry on the main path, the traced round, the checkpoint
@@ -3037,6 +3407,20 @@ def main() -> int:
     training["card_vs_cpu"] = check_train_card_vs_cpu()
     check_train_clis(card)
     log(f"phase 14: {time.perf_counter() - t14!r} s; the script so far "
+        f"{time.perf_counter() - t_start!r} s")
+
+    # 15. the mesh: the mesh backend against phase 11's vmap runs, a
+    # 3-way mesh on one card, telemetry; the models under a registered
+    # mesh; the examples
+    t15 = time.perf_counter()
+    mesh_out = check_mesh_runs(api, clients, vmap_refs, card)
+    del vmap_refs
+    torch.cuda.empty_cache()
+    with torch.inference_mode():
+        mesh_out["models"] = check_mesh_models(card)
+    mesh_out["examples"] = check_mesh_examples(card)
+    mesh_out["phase_s"] = time.perf_counter() - t15
+    log(f"phase 15: {mesh_out['phase_s']!r} s; the script so far "
         f"{time.perf_counter() - t_start!r} s")
 
     kernels = [{
@@ -3123,7 +3507,8 @@ def main() -> int:
            for f in ("ms", "plain_ms", "bound_ms")):
         raise AssertionError(f"non-finite timing: {kernels}")
     print(json.dumps({"traced_round": splits, "on_off_round_s": on_off,
-                      "training": training, "card": card}), flush=True)
+                      "training": training, "mesh": mesh_out,
+                      "card": card}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

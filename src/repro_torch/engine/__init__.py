@@ -8,7 +8,8 @@ baseline), FedAvgBaseline (Algorithm 1, fixed architecture).  Backends:
 "vmap" (stacked client shards on the device, a group's clients trained
 one after another on the loop's step, evaluation of tiles of clients
 under ``torch.func.vmap``; ``RunConfig.fused`` makes each train/eval
-call one batched call).
+call one batched call) and "mesh" (those stacks with the population axis
+split over the devices of a one-process mesh, ``launch.mesh``).
 Payload codecs (``RunConfig.uplink_codec`` / ``downlink_codec`` ->
 ``repro_torch.comm``) compress what crosses the wire around any
 strategy.  Client availability (``RunConfig.client_sim`` ->
@@ -21,9 +22,10 @@ search.
 """
 from repro_torch.comm import CodecBackend, PayloadCodec, make_codec
 from repro_torch.engine.availability import ClientSimulator, RoundSim
-from repro_torch.engine.backends import ExecutionBackend, LoopBackend, \
-    StackedClientBase, VmapBackend, make_backend
+from repro_torch.engine.backends import BACKENDS, ExecutionBackend, \
+    LoopBackend, StackedClientBase, VmapBackend, make_backend
 from repro_torch.engine.engine import FedEngine
+from repro_torch.engine.mesh_backend import MeshBackend
 from repro_torch.engine.strategies import FedAvgBaseline, OfflineNas, \
     RealTimeNas, Strategy
 from repro_torch.engine.types import AGGREGATE_BACKENDS, BYTES_PER_PARAM, \
@@ -32,11 +34,14 @@ from repro_torch.engine.types import AGGREGATE_BACKENDS, BYTES_PER_PARAM, \
 from repro_torch.obs import InstrumentedBackend, RoundEvent, Telemetry, \
     TelemetryConfig, TelemetryResult
 
+BACKENDS["mesh"] = MeshBackend
+
 __all__ = [
     "AGGREGATE_BACKENDS", "BYTES_PER_PARAM", "ClientSimConfig",
     "ClientSimulator", "CodecBackend", "CommStats", "ERROR_COUNT_BYTES",
     "EngineResult", "ExecutionBackend", "FedAvgBaseline", "FedEngine",
-    "InstrumentedBackend", "LoopBackend", "OfflineNas", "PayloadCodec",
+    "InstrumentedBackend", "LoopBackend", "MeshBackend", "OfflineNas",
+    "PayloadCodec",
     "RealTimeNas", "RoundEvent", "RoundReport", "RoundSim", "RunConfig",
     "StackedClientBase", "Strategy", "Telemetry", "TelemetryConfig",
     "TelemetryResult", "VmapBackend", "history_dict", "make_backend",

@@ -18,7 +18,8 @@ by shape), trains each group's clients from its stack one after another
 on the loop backend's step, and evaluates tiles of clients together
 under ``torch.func.vmap``; with ``RunConfig.fused`` (the
 default) a whole ``train_fill`` or evaluation call is one batched call
-("dispatch").
+("dispatch").  ``MeshBackend`` (``engine/mesh_backend.py``) runs the same
+bodies with the population axis split over the devices of a mesh.
 Every backend counts ``dispatches`` at the places the JAX package's
 counts them, so tests can assert the scaling claims.  Algorithm 3 routes
 through ``RunConfig.aggregate_backend`` in both.  Each callable that
@@ -366,15 +367,15 @@ class LoopBackend:
 
 
 # ---------------------------------------------------------------------------
-# Shared stacking/caching for the batched backend
+# Shared stacking/caching for the batched backends (vmap, mesh)
 # ---------------------------------------------------------------------------
 
 class StackedClientBase:
     """Host-side stacking, bucketing and caching for the batched
-    execution backend (``VmapBackend``): stack-on-demand train-shard
-    stores on ``cfg.device`` keyed by the round's sampled clients,
-    per-group gathers from them, and a memoized stacked test set per
-    participant set.  Only sampled clients are ever stacked (or, with a
+    execution backends (``VmapBackend``, ``MeshBackend``):
+    stack-on-demand train-shard stores on ``cfg.device`` keyed by the
+    round's sampled clients, per-group gathers from them, and a memoized
+    stacked test set per participant set.  Only sampled clients are ever stacked (or, with a
     lazy ``ClientFleet``, even materialized) — device memory scales with
     participation, never fleet size.  ``cache_stats`` counts the LRU
     hits and misses.  Raises ``RuntimeError`` if ``cfg.device`` is a
@@ -531,19 +532,31 @@ class StackedClientBase:
         return wrong[:n_keys] / total
 
     def _group_bucket_arrays(self, keys, groups, total, survivors=None,
-                             store=None):
+                             store=None, pad_groups=0, place=None):
         """Per shape bucket of the round's sampled-client train store
         (built from the union of ``groups`` when ``store`` is not
         passed), the group-major stacked arrays the fused fill programs
-        consume: (keys (G, nb) host int32, xb (G, S, nbat, B, ...) and yb
-        on the device, w (G, S) host float32 normalized by ``total``),
-        with ragged groups padded to S clients — padding at weight 0, so
-        it contributes exactly nothing.  Dropped clients (``survivors``)
-        keep their row but at weight 0, with ``total`` summed over
-        survivors only."""
+        consume: (keys (Gp, nb) host int32, xb (Gp, S, nbat, B, ...) and
+        yb on the device, w (Gp, S) host float32 normalized by
+        ``total``), with the G groups padded to Gp = G + ``pad_groups``
+        (key 0, the store's first rows) and ragged groups padded to S
+        clients — all padding at weight 0, so it contributes exactly
+        nothing.  Dropped clients (``survivors``) keep their row but at
+        weight 0, with ``total`` summed over survivors only.  ``place``,
+        where given, maps each of the four arrays to the form its
+        consumer takes (the mesh backend splits the leading axis over its
+        devices); the keys array is placed once and shared by every
+        bucket."""
         out = []
         g_n = len(groups)
         keys_arr = np.stack([np.asarray(k, np.int32) for k in keys])
+        if pad_groups:
+            keys_arr = np.concatenate([keys_arr, np.zeros(
+                (pad_groups, keys_arr.shape[1]), np.int32)])
+        if place is None:
+            def place(a):
+                return a
+        karr = place(keys_arr)
         if store is None:
             store = self._train_store([c for g in groups for c in g])
         for pos, xb_all, yb_all in store:
@@ -552,8 +565,8 @@ class StackedClientBase:
             s_max = max((len(e) for e in entries), default=0)
             if s_max == 0:
                 continue
-            rows = np.zeros((g_n, s_max), np.int64)
-            w = np.zeros((g_n, s_max), np.float32)
+            rows = np.zeros((g_n + pad_groups, s_max), np.int64)
+            w = np.zeros((g_n + pad_groups, s_max), np.float32)
             for g, e in enumerate(entries):
                 if not e:
                     continue
@@ -564,7 +577,8 @@ class StackedClientBase:
                 w[g, :len(e)] = np.asarray([wt for _, wt in e],
                                            np.float32) / total
             rows_d = self._put(rows)
-            out.append((keys_arr, xb_all[rows_d], yb_all[rows_d], w))
+            out.append((karr, place(xb_all[rows_d]), place(yb_all[rows_d]),
+                        place(w)))
         return out
 
     def train_fedavg(self, params, key, client_ids, lr, survivors=None):
@@ -823,19 +837,15 @@ class VmapBackend(StackedClientBase):
 
 
 BACKENDS = {"loop": LoopBackend, "vmap": VmapBackend}
-_NOT_YET_PORTED = {"mesh": "ROADMAP queue 1: mesh and launch"}
 
 
 def make_backend(name: str, api: SupernetAPI,
                  clients: Sequence[ClientDataset], cfg: RunConfig):
-    """Build the execution backend ``name`` ('loop' | 'vmap'); unknown
-    names and the backends not yet ported raise here, before any round
-    runs."""
+    """Build the execution backend ``name`` ('loop' | 'vmap' | 'mesh');
+    unknown names raise here, before any round runs.  ``mesh`` lives in
+    ``repro_torch.engine.mesh_backend`` and is entered into ``BACKENDS``
+    by the package's ``__init__``."""
     if name in BACKENDS:
         return BACKENDS[name](api, clients, cfg)
-    if name in _NOT_YET_PORTED:
-        raise NotImplementedError(
-            f"execution backend {name!r} is not yet ported to repro_torch "
-            f"({_NOT_YET_PORTED[name]}); use 'loop' or 'vmap'")
     raise ValueError(f"unknown execution backend {name!r}; available: "
-                     "['loop', 'vmap'] (ported), ['mesh'] (not yet)")
+                     f"{sorted(BACKENDS)}")

@@ -173,11 +173,15 @@ class RunConfig:
         CPU) or ``"torch"`` (leaf by leaf in PyTorch).  Unknown values
         raise here, at config time.
       * ``backend`` — client-execution backend: ``"loop"`` (one local
-        update per (individual, client) pair) or ``"vmap"``
+        update per (individual, client) pair), ``"vmap"``
         (``ClientBatch``-stacked shards on the device; a group's clients
         train in turn from one stack, evaluation runs under
         ``torch.func.vmap``, O(population) batched calls per
-        generation).  Validated when the engine builds the
+        generation) or ``"mesh"`` (the same stacks with the population
+        axis split over the devices of ``launch.mesh.make_host_mesh``:
+        every visible card, or one CPU device on ``"cpu"``; pass
+        ``FedEngine(..., backend=MeshBackend(..., mesh=...))`` for
+        another mesh).  Validated when the engine builds the
         backend.
       * ``vmap_eval_tile`` — clients evaluated together per inner
         ``vmap`` tile in the batched backend's forward-only evaluation
@@ -192,7 +196,8 @@ class RunConfig:
         ``master_donation_safe``) and one per evaluation call (every key
         -> one on-device wrong-count vector, read by the host once).  On
         the ``"kernel"`` route a fused ``train_fill`` is one call for
-        every group's uploads, then one K1 launch per shape bucket.
+        every group's uploads (on ``"mesh"`` one per shape bucket, fused
+        or not), then one K1 launch per shape bucket.
         Defaults to True; ``False`` restores the per-bucket / per-key
         calls.  Ignored by the ``"loop"`` backend.
       * ``device`` — where the master, the client shards and all training
@@ -239,7 +244,7 @@ class RunConfig:
     mutation: float = 0.1
     seed: int = 0
     aggregate_backend: str = "kernel"   # Algorithm 3 route: 'torch' | 'kernel'
-    backend: str = "loop"               # execution: 'loop' | 'vmap'
+    backend: str = "loop"               # execution: 'loop' | 'vmap' | 'mesh'
     vmap_eval_tile: int = 32            # clients vmapped per eval tile
     fused: bool = True                  # one call per generation phase
     device: str = "cuda"                # 'cuda' | 'cpu'

@@ -8,7 +8,8 @@ Everything routes through ``repro_torch.engine.FedEngine`` with
 Algorithm 3 on the fill-aggregation kernel (its plain version on the
 CPU); ``engine_backend`` selects the client-execution path (``"loop"``:
 one local update per (individual, client) pair; ``"vmap"``: stacked
-client shards) and ``device`` where the run lives.
+client shards; ``"mesh"``: those stacks with the population split over
+the devices of ``make_host_mesh``) and ``device`` where the run lives.
 """
 from __future__ import annotations
 

@@ -35,7 +35,8 @@ def main(argv=None):
     ap.add_argument("--engine-backend", default="loop",
                     choices=["loop", "vmap", "mesh"],
                     help="client-execution backend (FedEngine); 'mesh' "
-                         "is not yet ported and raises")
+                         "splits the population over every visible card "
+                         "(one CPU device with --device cpu)")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", default="benchmarks/results")

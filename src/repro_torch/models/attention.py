@@ -12,8 +12,16 @@ The softmax(QKᵀ)V core of a full sequence takes one of three routes:
 ``backend="torch"`` is the einsum path ``_attend`` (the JAX package's
 ``"xla"``) and ``backend="chunked"`` is ``_attend_chunked``, the same
 einsums over blocks of queries, each recomputed in the backward pass, so
-that only a chunk x T score tile is live.  Decode and cross
-attention always take ``_attend``, as in the JAX package.
+that only a chunk x T score tile is live.  Cross attention always takes
+``_attend``, as in the JAX package; so does decode, but under a
+registered mesh whose ``model`` axis divides the head dim
+(``launch.policy.set_mesh``), where decode takes
+``_attend_decode_pinned``: the JAX package's decode path for its
+sharded cache layout, whose probabilities are rounded to V's dtype
+before the product with V (in bf16 its logits differ from ``_attend``'s
+by a few 1e-3).  The JAX package's sharding hints with no effect on any
+value (``_maybe_shard_kv_seq``, and the pins themselves) have no
+counterpart in one process.
 """
 from __future__ import annotations
 
@@ -25,6 +33,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels import ops as kops
+from repro_torch.launch import policy
 from repro_torch.models.layers import apply_rope, dense, dense_init
 
 NEG_INF = -1e30
@@ -219,5 +228,34 @@ def decode_self_attention(p, x, cache, t: int, *, num_heads, num_kv_heads,
     valid = (cpos >= 0) & (cpos <= t)
     if window:
         valid = valid & (cpos > t - window)
-    out = _attend(q, cache["k"], cache["v"], valid[None, None, :])
+    attend = _attend_decode_pinned if _pinned(head_dim) else _attend
+    out = attend(q, cache["k"], cache["v"], valid[None, None, :])
     return dense(p["wo"], out), cache
+
+
+def _pinned(head_dim: int) -> bool:
+    """Whether decode takes the JAX package's pinned path
+    (``_hd_sharding``'s condition): a registered mesh with a ``model``
+    axis that divides the head dim."""
+    mesh = policy.get_mesh()
+    return (mesh is not None and "model" in mesh.axis_names
+            and head_dim % mesh.shape["model"] == 0)
+
+
+def _attend_decode_pinned(q, k, v, mask):
+    """Decode attention as the JAX package computes it on its sharded
+    cache: float32 scores of the input-dtype q and k, the softmax in
+    float32, the probabilities rounded to V's dtype, then P·V accumulated
+    in float32 and cast to V's dtype.  q: (B, S, H, D); k, v: (B, T, Kh,
+    D); mask: (B|1, S, T) -> (B, S, H*D).  In float32 it equals
+    ``_attend``."""
+    b, s, h, d = q.shape
+    k, v = _repeat_kv(k, v, h)
+    scores = torch.einsum("bshd,bthd->bhst", q.float(),
+                          k.float()) / math.sqrt(d)
+    scores = torch.where(mask[:, None, :, :], scores,
+                         torch.full_like(scores, NEG_INF))
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bhst,bthd->bshd", probs.to(v.dtype).float(),
+                       v.float())
+    return out.reshape(b, s, h * d).to(v.dtype)

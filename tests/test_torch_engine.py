@@ -168,13 +168,22 @@ def test_default_device_is_cuda_and_never_falls_back(apis):
         FedEngine(apis[1], clients, RunConfig(population=4, generations=1))
 
 
-@pytest.mark.parametrize("name,exc", [("mesh", NotImplementedError),
+@pytest.mark.parametrize("name,exc", [("mesh", None),
                                       ("bogus", ValueError)])
 def test_unported_backends_raise_at_construction(apis, name, exc):
+    """Every backend is ported: ``mesh`` builds on the CPU (one CPU
+    device; tests/test_torch_mesh.py holds it against ``vmap`` and the
+    JAX package), and an unknown name raises at construction."""
+    from repro_torch.engine import MeshBackend
     clients = tiny_clients(make_classification, make_clients, partition_iid)
+    cfg = RunConfig(population=4, device="cpu", backend=name)
+    if exc is None:
+        eng = FedEngine(apis[1], clients, cfg)
+        assert isinstance(eng.backend, MeshBackend)
+        assert eng.backend.num_devices == 1 and eng.backend.dispatches == 0
+        return
     with pytest.raises(exc):
-        FedEngine(apis[1], clients,
-                  RunConfig(population=4, device="cpu", backend=name))
+        FedEngine(apis[1], clients, cfg)
 
 
 def test_vmap_backend_builds_on_the_cpu(apis):

@@ -1,14 +1,17 @@
 """repro_torch.obs: telemetry is bit for bit invisible when off, faithful
 when on, and records what the JAX package's ``repro.obs`` records.
 
-Mirrors ``tests/test_obs.py`` without its mesh cases, on the smoke CIFAR
-supernet (4 blocks, image 8), 6 clients of 40 samples, population 4, 3
-generations, on the CPU:
+Mirrors ``tests/test_obs.py`` on the smoke CIFAR supernet (4 blocks,
+image 8), 6 clients of 40 samples, population 4, 3 generations, on the
+CPU:
 
   * per backend variant — ``loop``, fused ``vmap`` on both Algorithm 3
-    routes, non-fused ``vmap`` — telemetry on gives final masters and
-    objectives bit for bit equal to telemetry off, equal ``CommStats``
-    and ``dispatches``, and one ``RoundEvent`` per generation;
+    routes, non-fused ``vmap``, and ``mesh`` (one CPU device) fused and
+    not — telemetry on gives final masters and objectives bit for bit
+    equal to telemetry off, equal ``CommStats`` and ``dispatches``, and
+    one ``RoundEvent`` per generation; each fused program counts one
+    signature, on ``mesh`` too (the JAX package's mesh traces
+    ``fused_fill`` twice, ROADMAP queue 3);
   * the event contents on a fused ``vmap`` run with int8 both ways,
     dropout 0.25 and availability seed 1 (spans, comm deltas, gauges,
     times), the fleet gauges, the signature counters (``traced``), the
@@ -55,7 +58,8 @@ from repro_torch.obs.capture import span_intervals  # noqa: E402
 
 # (backend, fused, Algorithm 3 route)
 VARIANTS = (("loop", True, "torch"), ("vmap", True, "torch"),
-            ("vmap", False, "torch"), ("vmap", True, "kernel"))
+            ("vmap", False, "torch"), ("vmap", True, "kernel"),
+            ("mesh", True, "torch"), ("mesh", False, "torch"))
 GENS = 3
 RUN = dict(population=4, generations=GENS, seed=0, lr0=0.01)
 FULL = dict(backend="vmap", fused=True, uplink_codec="int8",
@@ -298,6 +302,30 @@ def test_vmap_programs_trace_once(onoff, variant, expected):
     assert events[0].recompiles == expected
     for e in events[1:]:                # steady state: no new signature
         assert e.recompiles == {}
+
+
+@pytest.mark.parametrize("bk", ["vmap", "mesh"])
+def test_fused_programs_trace_once(onoff, bk):
+    """``tests/test_obs.py``'s case on the port's own runs: one signature
+    per fused program, in generation 1 only."""
+    res = onoff[(bk, True, "torch")]["on"][1]
+    tc = res.telemetry.trace_counts
+    assert tc.get("fused_fill") == 1
+    assert tc.get("fused_eval_shared") == 1
+    assert all(v == 1 for v in tc.values()), tc
+    events = res.telemetry.events
+    assert events[0].recompiles.get("fused_fill") == 1
+    for e in events[1:]:                # steady state: no new signature
+        assert e.recompiles == {}
+
+
+def test_nonfused_mesh_programs_trace_once(onoff):
+    """Non-fused ``mesh``: one call per shape bucket, named as the JAX
+    package's mesh programs, one signature each."""
+    res = onoff[VARIANTS[5]]["on"][1]
+    expected = {"fill_partial": 1, "eval_shared_counts": 1}
+    assert res.telemetry.trace_counts == expected
+    assert res.telemetry.events[0].recompiles == expected
 
 
 def test_nonfused_span_counts_match_reference(onoff):
