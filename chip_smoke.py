@@ -254,16 +254,31 @@ Phases, each fatal on failure:
    pinned decode rounds its probabilities to bf16) with its token
    agreement and decode step time logged; (e) the ``serve_batched``
    example at its defaults and ``federated_nas_cifar`` at its default
-   size on ``--engine-backend mesh`` (6 K1 launches, all in place).
+   size on ``--engine-backend mesh`` (6 K1 launches, all in place);
+16. the dry run (``launch/dryrun.py``, on the meta device): (a) every
+   arch but the CIFAR supernet x every shape on the 16 x 16 mesh, torch
+   route, in worker processes: every record made and finite, its
+   arguments the per-device sum of the specs; (b) on a (1, 1) mesh of
+   cuda:0, qwen1.5-0.5b's training step at phase 14's setting and the
+   4 x 1024 bf16 torch-route prefills of qwen1.5-0.5b and
+   granite-moe-1b-a400m, each estimate against the same step on the
+   card: arguments within 0.1 % of what ``memory_allocated`` grew by,
+   the peak within 5 % (training) or 10 % (prefills) of
+   ``max_memory_allocated``, the FLOPs equal to ``FlopCounterMode``'s on
+   the card, ``compute_s`` and ``memory_s`` no larger than the measured
+   step; (c) the kernel route on meta for qwen's, mamba2's and granite's
+   phase-10 prefills: the counted K3, K4 and K5 launches equal phase
+   10's.
 
-Prints the traced rounds, the training and the mesh numbers as one JSON
-line, the kernels as one JSON line,
+Prints the traced rounds, the training, the mesh and the dry-run numbers
+as one JSON line, the kernels as one JSON line,
 then the ``nvidia-smi`` line, then ``{"ok": true, "device": {...}}`` as
 the last line.  Exits non-zero
 without that line if any phase fails or no CUDA device is present.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import json
@@ -281,7 +296,8 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from repro_torch.ckpt import restore_latest, save_pytree  # noqa: E402
-from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.configs import ARCH_ALIASES, SHAPES, InputShape, \
+    get_config, get_shape  # noqa: E402
 from repro_torch.core import cnn_supernet_api, lm_supernet_api  # noqa: E402
 from repro_torch.data import ClientDataset, make_classification, \
     make_clients, make_lm_stream, partition_iid  # noqa: E402
@@ -297,9 +313,13 @@ from repro_torch.kernels import fill_aggregate as kfa  # noqa: E402
 from repro_torch.kernels import flash_attention as flash  # noqa: E402
 from repro_torch.kernels import quantize as kq  # noqa: E402
 from repro_torch.kernels import ssd_scan as kssd  # noqa: E402
-from repro_torch.launch import policy  # noqa: E402
+from repro_torch.launch import dryrun, policy  # noqa: E402
+from repro_torch.launch.roofline import BF16_FLOPS, FP32_FLOPS, bound, \
+    expert_gemm_cost, flash_attention_cost, ssd_scan_cost, \
+    tensor_leaves  # noqa: E402
 from repro_torch.launch import train as lm_train  # noqa: E402
-from repro_torch.launch.mesh import make_host_mesh  # noqa: E402
+from repro_torch.launch.mesh import Mesh, make_host_mesh, \
+    make_production_mesh  # noqa: E402
 from repro_torch.launch.serve import greedy_generate, make_decode_step, \
     make_prefill_step  # noqa: E402
 from repro_torch.models import moe  # noqa: E402
@@ -311,9 +331,6 @@ from repro_torch.obs import load_trace, round_split, traced  # noqa: E402
 
 TOL = 1e-6              # <= 8 float32 terms summed in another order, FMA
 MASTER_TOL = 1e-4       # route-to-route gap of the final master
-HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
-FP32_FLOPS = 67e12          # H100 SXM data sheet, float32 without tensor cores
-BF16_FLOPS = 989e12         # H100 SXM data sheet, dense bf16 tensor cores
 MAIN_M, MAIN_P = 8, 26_119_059   # uploads per train_fill x master params
 LEAF_P = 2_359_296               # the master's largest leaf (512 x 512 x 3 x 3)
 N_LEAVES = 126                   # float leaves of the full-width master
@@ -601,15 +618,6 @@ def median_ms(fn, reps: int, warmup: int = 3) -> float:
         times.append((start, end))
     torch.cuda.synchronize()
     return float(np.median([s.elapsed_time(e) for s, e in times]))
-
-
-def bound(nbytes: float, flops: float, peak: float) -> dict:
-    """The least time for moving ``nbytes`` and doing ``flops`` at
-    ``peak``: the larger of the two, and which one it is."""
-    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = flops / peak * 1e3
-    return {"bound_ms": max(bytes_ms, ops_ms),
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
 
 
 def time_fill_aggregate(card: str) -> tuple:
@@ -1549,18 +1557,6 @@ def check_ssd() -> float:
     return worst
 
 
-def flash_pairs(s: int, window: int, causal: bool = True) -> int:
-    """Unmasked (query, key) pairs of one head of length ``s``: causal
-    (within ``window``), or every pair (bidirectional; FLASH_TIMED times
-    no bidirectional window)."""
-    if not causal:
-        return s * s
-    if not window:
-        return s * (s + 1) // 2
-    w = min(window, s)
-    return w * (w + 1) // 2 + (s - w) * w
-
-
 def time_flash(card: str) -> dict:
     """K3 at the FLASH_TIMED cases, bf16, causal or bidirectional, each
     beside ``scaled_dot_product_attention`` on the same shape and mask
@@ -1574,8 +1570,8 @@ def time_flash(card: str) -> dict:
     for shape, window, causal in FLASH_TIMED:
         b, s, h, kh, d = shape
         q, k, v = flash_inputs(*shape, torch.bfloat16, seed=9)
-        nbytes = 2 * (2 * b * s * h * d + 2 * b * s * kh * d)
-        flops = 4 * d * b * h * flash_pairs(s, window, causal)
+        nbytes, flops = flash_attention_cost(*shape, q.element_size(),
+                                             causal, window)
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))  # (B, H, S, D)
         qi = torch.arange(s, device="cuda")[:, None]
         ki = torch.arange(s, device="cuda")[None, :]
@@ -1649,14 +1645,8 @@ def time_ssd(card: str) -> dict:
     shape's numbers, with every shape under ``cases``."""
     cases = []
     for shape in SSD_TIMED:
-        b, nc, q, h, p, n = shape
         args = ssd_inputs(*shape, seed=10)
-        nbytes = 4 * (2 * b * nc * q * h * p + b * nc * q * h
-                      + 2 * b * nc * q * n + b * h * p * n)
-        tri = q * (q + 1) // 2
-        flops = (b * nc * 2 * tri * n
-                 + b * nc * h * (2 * tri * p + 2 * q * n * p + 2 * q * p * n
-                                 + 2 * p * n))
+        nbytes, flops = ssd_scan_cost(*shape)
         res = {"shape": list(shape),
                "ms": device_ms(lambda: ops.ssd_scan(*args), 20),
                # the plain recurrence is ~5000 small launches: host-bound
@@ -1766,8 +1756,7 @@ def time_expert_gemm(card: str) -> dict:
         for dtype, peak in ((torch.bfloat16, BF16_FLOPS),
                             (torch.float32, FP32_FLOPS)):
             x, w = gemm_inputs(*shape, dtype, seed=11)
-            nbytes = x.element_size() * (e * c * d + e * d * f + e * c * f)
-            flops = 2 * e * c * d * f
+            nbytes, flops = expert_gemm_cost(*shape, x.element_size())
             r = {"ms": device_ms(lambda: ops.expert_gemm(x, w), 20),
                  "plain_ms": device_ms(lambda: ref.expert_gemm(x, w), 5),
                  # the nearest single PyTorch call; timed here, never used
@@ -3196,6 +3185,272 @@ def check_mesh_examples(card: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 16: the dry run
+# ---------------------------------------------------------------------------
+
+DRYRUN_JOBS = 7          # worker processes of (a), one thread each
+DRYRUN_TIMEOUT = 600     # seconds (a) may take
+# (b): each estimate as (label, arch, shape, optimizer, microbatch, peak
+# limit, timed steps): qwen's training step at phase 14's setting, and
+# the 4 x 1024 bf16 torch-route prefills of qwen and granite (the MoE)
+DRYRUN_ESTIMATES = (
+    ("qwen1.5-0.5b training step", TRAIN_ARCH,
+     InputShape("train_4x4096", "train", TRAIN_SEQ, TRAIN_BATCH), "adamw",
+     TRAIN_MICRO, 0.05, 3),
+    ("qwen1.5-0.5b prefill", "qwen1.5-0.5b",
+     InputShape("prefill_4x1024", "prefill", 1024, REQUESTS), "sgd", 1,
+     0.10, 5),
+    ("granite-moe-1b-a400m prefill", "granite-moe-1b-a400m",
+     InputShape("prefill_4x1024", "prefill", 1024, REQUESTS), "sgd", 1,
+     0.10, 5),
+)
+ARGS_TOL = 1e-3          # arguments against memory_allocated, relative
+# (c): the kernel route on meta, at phase 10's prompts
+DRYRUN_KERNEL_ARCHS = ("qwen1.5-0.5b", "mamba2-780m", "granite-moe-1b-a400m")
+
+
+def run_dryrun_matrix(out_dir: str) -> float:
+    """``python -m repro_torch.launch.dryrun --arch all --shape all`` on
+    the 16 x 16 mesh, torch route, in DRYRUN_JOBS worker processes, its
+    records saved under ``out_dir``; returns its seconds.  The command
+    runs in a session of its own, killed whole past DRYRUN_TIMEOUT."""
+    import os
+    import signal
+    cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+           "all", "--shape", "all", "--jobs", str(DRYRUN_JOBS), "--save",
+           "--out", out_dir]
+    env = dict(os.environ,
+               PYTHONPATH=str(Path(__file__).resolve().parent / "src"))
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True,
+                            start_new_session=True)
+    try:
+        text, _ = proc.communicate(timeout=DRYRUN_TIMEOUT)
+    finally:
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+    seconds = time.perf_counter() - t0
+    for line in text.splitlines():
+        log(f"  dryrun: {line}")
+    if proc.returncode:
+        raise AssertionError(f"dry run matrix exited {proc.returncode}")
+    return seconds
+
+
+def check_dryrun_matrix() -> dict:
+    """(a) Every arch but the CIFAR supernet x every shape on the 16 x 16
+    mesh: every record made, every number finite, and its
+    ``argument_size_in_bytes`` (the counter's held storage, each weighted
+    by its share) equal to the per-device sum of the specs
+    (``dryrun.argument_bytes_from_specs``)."""
+    archs = [a for a in ARCH_ALIASES if a != "cifar-supernet"]
+    with tempfile.TemporaryDirectory() as out:
+        seconds = run_dryrun_matrix(out)
+        recs = [json.loads(p.read_text())
+                for p in sorted(Path(out).glob("*.json"))]
+    got = {(r["arch"], r["shape"]) for r in recs}
+    want = {(a, s) for a in archs for s in SHAPES}
+    if got != want or len(recs) != len(want):
+        raise AssertionError(f"dry run records: missing {want - got}, "
+                             f"extra {got - want}")
+    mesh = make_production_mesh()
+    rows = []
+    for r in recs:
+        bad = [k for k, v in r.items() if isinstance(v, float)
+               and not math.isfinite(v)]
+        if bad or r["mesh"] != "16x16":
+            raise AssertionError(f"{r['arch']} x {r['shape']}: not finite "
+                                 f"{bad}, mesh {r['mesh']}")
+        specs_sum = dryrun.argument_bytes_from_specs(
+            get_config(r["arch"]), get_shape(r["shape"]), mesh)
+        if r["argument_size_in_bytes"] != specs_sum:
+            raise AssertionError(f"{r['arch']} x {r['shape']}: arguments "
+                                 f"{r['argument_size_in_bytes']} B, specs "
+                                 f"{specs_sum} B")
+        rows.append({k: r[k] for k in (
+            "arch", "shape", "argument_size_in_bytes", "peak_bytes", "fits",
+            "flops_per_dev", "bytes_per_dev", "collective_bytes_per_dev",
+            "compute_s", "memory_s", "collective_s", "dominant",
+            "useful_flops_ratio", "compile_s")})
+    log(f"dry run matrix: {len(recs)} records on 16x16, every one finite, "
+        f"arguments the specs' sum, in {seconds!r} s "
+        f"({sum(r['compile_s'] for r in recs)!r} s of meta runs)")
+    return {"seconds": seconds, "records": rows}
+
+
+def card_args(cfg, shape: InputShape, optimizer: str,
+              device: str = "cuda") -> tuple:
+    """The step's arguments on ``device`` as ``dryrun.step_args`` lays
+    them out: params from a seeded generator, the optimizer state, and
+    ``make_lm_stream`` tokens (and labels), int32."""
+    params = tr.init_params(torch.Generator(device=device).manual_seed(0),
+                            cfg)
+    x, y = make_lm_stream(0, shape.global_batch, shape.seq_len,
+                          cfg.vocab_size)
+    batch = {"tokens": torch.from_numpy(x).to(device)}
+    if shape.kind == "train":
+        batch["labels"] = torch.from_numpy(y).to(device)
+        return params, lm_train.init_opt(params, optimizer), batch
+    return params, batch
+
+
+@contextlib.contextmanager
+def blocks_split_to_512():
+    """The caching allocator with expandable segments, under which it
+    splits a free block whenever 512 B or more would remain, so that
+    ``memory_allocated`` grows by a tensor's bytes rounded to 512.  By
+    default it hands a tensor of over 1 MB the whole block when no more
+    than 1 MB would remain (``default_allocator_args`` logs what that
+    adds).  The cache is emptied on the way in and out."""
+    settings = getattr(torch._C, "_accelerator_setAllocatorSettings",
+                       None) or torch.cuda.memory._set_allocator_settings
+    gc.collect()
+    torch.cuda.empty_cache()
+    settings("expandable_segments:True")
+    try:
+        yield
+    finally:
+        gc.collect()
+        torch.cuda.empty_cache()
+        settings("expandable_segments:False")
+
+
+def default_allocator_args() -> dict:
+    """The arguments of each (b) estimate placed on the card under the
+    default allocator: what ``memory_allocated`` grew by, beside the
+    tensors' bytes (logged; no limit)."""
+    out = {}
+    for label, arch, shape, optimizer, *_ in DRYRUN_ESTIMATES:
+        cfg = get_config(arch)
+        gc.collect()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        args = card_args(cfg, shape, optimizer)
+        torch.cuda.synchronize()
+        grown = torch.cuda.memory_allocated() - base
+        seen = {}
+        for t in tensor_leaves(args):
+            st = t.untyped_storage()
+            seen[st.data_ptr()] = st.nbytes()
+        tensors = sum(seen.values())
+        log(f"dry run, default allocator, {label}: memory_allocated grew "
+            f"by {grown} B for {len(seen)} tensors of {tensors} B "
+            f"({grown - tensors:+d} B)")
+        out[label] = {"allocated": grown, "tensors": tensors,
+                      "count": len(seen)}
+        del args
+    torch.cuda.empty_cache()
+    return out
+
+
+def check_dryrun_estimate(label, arch, shape, optimizer, microbatch,
+                          peak_tol, reps, card, phase14=None) -> dict:
+    """(b) One estimate on a (1, 1) host mesh of cuda:0 against the same
+    step on the card: the arguments within ARGS_TOL of what
+    ``memory_allocated`` grew by once they are placed; the peak within
+    ``peak_tol`` of ``max_memory_allocated`` over ``reps`` steps (above
+    what the card held before; run it under ``blocks_split_to_512``); the meta FLOPs equal to
+    ``FlopCounterMode``'s over the real step; ``compute_s`` and
+    ``memory_s`` no larger than the measured step (median of ``reps``)."""
+    from torch.utils.flop_counter import FlopCounterMode
+    rec = dryrun.dry_run(arch, shape, mesh=make_host_mesh(["cuda:0"]),
+                         optimizer=optimizer, microbatch=microbatch,
+                         verbose=False)
+    cfg = get_config(arch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    args = card_args(cfg, shape, optimizer)
+    torch.cuda.synchronize()
+    args_bytes = torch.cuda.memory_allocated() - base
+    call = dryrun.build_step(cfg, shape, microbatch=microbatch,
+                             optimizer=optimizer)
+    zero_launches()
+    with FlopCounterMode(display=False) as fc:
+        out = call(args)
+    torch.cuda.synchronize()
+    del out
+    card_flops = fc.get_total_flops()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        out = call(args)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        del out
+    peak = torch.cuda.max_memory_allocated() - base
+    expect_launches(f"dry run estimate {label}", {})
+    step_s = float(np.median(times))
+    res = {"arch": arch, "shape": dataclasses.asdict(shape),
+           "optimizer": optimizer, "microbatch": microbatch,
+           "meta_s": rec["compile_s"],
+           "arguments": rec["argument_size_in_bytes"],
+           "arguments_card": args_bytes,
+           "peak_bytes": rec["peak_bytes"], "peak_card": peak,
+           "flops": rec["flops_per_dev"], "flops_card": card_flops,
+           "bytes": rec["bytes_per_dev"], "compute_s": rec["compute_s"],
+           "memory_s": rec["memory_s"], "step_s": step_s,
+           "step_s_all": times}
+    log(f"dry run estimate {label} on {card}: arguments {res['arguments']} "
+        f"B (card {args_bytes} B); peak {res['peak_bytes']} B (card {peak} "
+        f"B, {res['peak_bytes'] / peak - 1:+.4%}); FLOPs {res['flops']!r} "
+        f"(card {card_flops}); bytes {res['bytes']!r}; compute_s "
+        f"{res['compute_s']!r}, memory_s {res['memory_s']!r} against the "
+        f"step's {step_s!r} s ({times}); meta run {res['meta_s']!r} s")
+    if phase14 is not None:
+        log(f"  phase 14's run of the same step: peak "
+            f"{phase14['peak_bytes']} B ({res['peak_bytes'] / phase14['peak_bytes'] - 1:+.4%} "
+            f"from the estimate), step {phase14['step_s']!r} s")
+        res["phase14"] = {k: phase14[k] for k in ("peak_bytes", "step_s")}
+    if abs(args_bytes - res["arguments"]) > ARGS_TOL * args_bytes:
+        raise AssertionError(f"{label}: arguments {res['arguments']} B, "
+                             f"card {args_bytes} B")
+    if abs(res["peak_bytes"] - peak) > peak_tol * peak:
+        raise AssertionError(f"{label}: peak {res['peak_bytes']} B, card "
+                             f"{peak} B, beyond {peak_tol:.0%}")
+    if int(res["flops"]) != card_flops:
+        raise AssertionError(f"{label}: FLOPs {res['flops']!r}, card "
+                             f"{card_flops}")
+    if res["compute_s"] > step_s or res["memory_s"] > step_s:
+        raise AssertionError(f"{label}: a roofline term above the step: "
+                             f"compute {res['compute_s']!r} s, memory "
+                             f"{res['memory_s']!r} s, step {step_s!r} s")
+    del args
+    torch.cuda.empty_cache()
+    return res
+
+
+def check_dryrun_kernel_route(serve_launches: dict) -> dict:
+    """(c) The kernel route on meta (a (1, 1) abstract mesh) for qwen's,
+    mamba2's and granite's phase-10 prefills: the counted K3, K4 and K5
+    launches equal phase 10's of one prefill."""
+    one = Mesh((1, 1), ("data", "model"))
+    out = {}
+    for arch in DRYRUN_KERNEL_ARCHS:
+        shape = InputShape(f"prefill_4x{SERVE[arch]['prompt']}", "prefill",
+                           SERVE[arch]["prompt"], REQUESTS)
+        rec = dryrun.dry_run(arch, shape, mesh=one, backend="kernel",
+                             verbose=False)
+        want = {k: n for k, n in serve_launches[arch].items() if n}
+        log(f"dry run, kernel route, {arch} prefill of 4 x "
+            f"{shape.seq_len}: launches {rec['launches']} (phase 10: "
+            f"{want}), FLOPs {rec['flops_per_dev']!r}, bytes "
+            f"{rec['bytes_per_dev']!r}, compute_s {rec['compute_s']!r}, "
+            f"memory_s {rec['memory_s']!r}")
+        if rec["launches"] != want:
+            raise AssertionError(f"{arch}: meta launches {rec['launches']}, "
+                                 f"phase 10 {want}")
+        out[arch] = {k: rec[k] for k in ("launches", "flops_per_dev",
+                                         "bytes_per_dev", "compute_s",
+                                         "memory_s", "peak_bytes")}
+    return out
+
+
 def main() -> int:
     t_start = time.perf_counter()
     # 1. device
@@ -3423,6 +3678,20 @@ def main() -> int:
     log(f"phase 15: {mesh_out['phase_s']!r} s; the script so far "
         f"{time.perf_counter() - t_start!r} s")
 
+    # 16. the dry run: the matrix on the production mesh, three estimates
+    # against the card, the kernel route's launches on meta
+    t16 = time.perf_counter()
+    dry = {"matrix": check_dryrun_matrix()}
+    dry["default_allocator"] = default_allocator_args()
+    with blocks_split_to_512():
+        dry["estimates"] = [check_dryrun_estimate(
+            *case, card, training["full_width"] if case[2].kind == "train"
+            else None) for case in DRYRUN_ESTIMATES]
+    dry["kernel_route"] = check_dryrun_kernel_route(serve_launches)
+    dry["phase_s"] = time.perf_counter() - t16
+    log(f"phase 16: {dry['phase_s']!r} s; the script so far "
+        f"{time.perf_counter() - t_start!r} s")
+
     kernels = [{
         "name": "fill_aggregate", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/fill_aggregate.cu",
@@ -3508,7 +3777,7 @@ def main() -> int:
         raise AssertionError(f"non-finite timing: {kernels}")
     print(json.dumps({"traced_round": splits, "on_off_round_s": on_off,
                       "training": training, "mesh": mesh_out,
-                      "card": card}), flush=True)
+                      "dryrun": dry, "card": card}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

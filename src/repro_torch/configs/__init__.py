@@ -1,3 +1,19 @@
-from repro_torch.configs.base import ARCH_ALIASES, ModelConfig, get_config
+from repro_torch.configs.base import (
+    ARCH_ALIASES,
+    ARCH_IDS,
+    SHAPES,
+    InputShape,
+    ModelConfig,
+    get_config,
+    get_shape,
+)
 
-__all__ = ["ARCH_ALIASES", "ModelConfig", "get_config"]
+__all__ = [
+    "ARCH_ALIASES",
+    "ARCH_IDS",
+    "SHAPES",
+    "InputShape",
+    "ModelConfig",
+    "get_config",
+    "get_shape",
+]

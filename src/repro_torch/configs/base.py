@@ -12,7 +12,9 @@ shared expert; too large for one card, run at smoke size);
 ``internvl2-1b`` (VLM: a projected prefix of 256 stub patch embeddings
 before the tokens) and ``whisper-large-v3`` (audio: a bidirectional
 encoder over 1500 stub frame embeddings, and a decoder with cross
-attention).
+attention).  ``InputShape`` and ``SHAPES`` are the four workload points
+the dry run (``launch/dryrun.py``) reckons every architecture at, with
+the JAX package's numbers.
 """
 from __future__ import annotations
 
@@ -88,6 +90,38 @@ class ModelConfig:
         return dataclasses.replace(self, **kw)
 
 
+@dataclasses.dataclass(frozen=True)
+class InputShape:
+    """One of the four assigned (seq_len, global_batch) workload points."""
+
+    name: str
+    kind: str            # train | prefill | decode
+    seq_len: int
+    global_batch: int
+    sliding: bool = False  # force the sliding-window attention variant
+
+
+SHAPES = {
+    "train_4k": InputShape("train_4k", "train", 4_096, 256),
+    "prefill_32k": InputShape("prefill_32k", "prefill", 32_768, 32),
+    "decode_32k": InputShape("decode_32k", "decode", 32_768, 128),
+    "long_500k": InputShape("long_500k", "decode", 524_288, 1, sliding=True),
+}
+
+# module names of the language models, in the JAX package's order
+ARCH_IDS = (
+    "whisper_large_v3",
+    "llama4_scout_17b_a16e",
+    "chatglm3_6b",
+    "deepseek_67b",
+    "zamba2_2p7b",
+    "starcoder2_3b",
+    "granite_moe_1b_a400m",
+    "qwen1p5_0p5b",
+    "internvl2_1b",
+    "mamba2_780m",
+)
+
 # CLI ids -> module names of the architectures
 ARCH_ALIASES = {
     "cifar-supernet": "cifar_supernet",
@@ -105,10 +139,18 @@ ARCH_ALIASES = {
 
 
 def get_config(arch: str, smoke: bool = False) -> ModelConfig:
-    """Load ``config()`` (or ``smoke_config()``) from the arch module."""
-    mod_name = ARCH_ALIASES.get(arch)
-    if mod_name is None:
+    """Load ``config()`` (or ``smoke_config()``) from the arch module.
+    ``arch`` is a CLI id (``qwen1.5-0.5b``) or a module name
+    (``qwen1p5_0p5b``), which the JAX package also resolves (its CLI id
+    with ``-`` as ``_`` and ``.`` as ``p``)."""
+    mod_name = ARCH_ALIASES.get(arch,
+                                arch.replace("-", "_").replace(".", "p"))
+    if mod_name not in ARCH_ALIASES.values():
         raise ValueError(f"unknown architecture {arch!r} (known: "
                          f"{sorted(ARCH_ALIASES)})")
     mod = importlib.import_module(f"repro_torch.configs.{mod_name}")
     return mod.smoke_config() if smoke else mod.config()
+
+
+def get_shape(name: str) -> InputShape:
+    return SHAPES[name]

@@ -8,7 +8,13 @@ run can show that its main path went through the kernels.
 
 K3, K4 and K5 are forward-only, as in the JAX package (its kernels have
 no VJP): their wrappers raise, on the CPU as on the card, when a
-gradient would be taken through them (``_forward_only``).
+gradient would be taken through them (``_forward_only``).  Their inputs
+may also lie on the ``meta`` device (all of them: the dry run,
+``launch/dryrun.py``): then the wrapper returns an empty output of the
+kernel's shape and adds the kernel's own bytes and FLOPs
+(``launch/roofline.py``'s ``*_cost``, the bounds ``chip_smoke.py`` holds
+each kernel to) to the counters counting the step
+(``roofline.count_kernel``), and launches nothing.
 """
 from __future__ import annotations
 
@@ -19,6 +25,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import quantize as _q
 from repro_torch.kernels import ref
+from repro_torch.launch import roofline
 
 LAUNCHES = {"fill_aggregate": 0, "int8_scale": 0, "quantize_int8": 0,
             "dequantize_int8": 0, "flash_attention": 0, "ssd_scan": 0,
@@ -39,12 +46,15 @@ def check_backend(backend: str) -> None:
                          f"{list(BACKENDS)}")
 
 
-def _common_device(name: str, *tensors: torch.Tensor) -> torch.device:
+def _common_device(name: str, *tensors: torch.Tensor,
+                   meta: bool = False) -> torch.device:
+    """The one device of ``tensors``: the CPU or a card, or (``meta``,
+    the model kernels' wrappers) the meta device."""
     devs = {t.device for t in tensors}
     if len(devs) != 1:
         raise ValueError(f"{name}: inputs on mixed devices {sorted(map(str, devs))}")
     dev = devs.pop()
-    if dev.type not in ("cpu", "cuda"):
+    if dev.type not in (("cpu", "cuda", "meta") if meta else ("cpu", "cuda")):
         raise ValueError(f"{name}: unsupported device {dev}")
     return dev
 
@@ -258,7 +268,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     CUDA kernels mask a ragged last tile (zamba2's prompts of 1000
     tokens).  Forward-only."""
     _forward_only("flash_attention", q, k, v)
-    _common_device("flash_attention", q, k, v)
+    dev = _common_device("flash_attention", q, k, v, meta=True)
     if q.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError("flash_attention: q must be float32 or bfloat16, "
                         f"got {q.dtype}")
@@ -285,8 +295,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"flash_attention: head dim {d} > 256")
     if window < 0:
         raise ValueError(f"flash_attention: window {window} < 0")
-    if q.device.type == "cpu":
+    if dev.type == "cpu":
         return ref.flash_attention(q, k, v, causal=causal, window=window)
+    if dev.type == "meta":
+        roofline.count_kernel("flash_attention",
+                              *roofline.flash_attention_cost(
+                                  b, s, h, kh, d, q.element_size(), causal,
+                                  window))
+        return torch.empty_like(q)
     from repro_torch.kernels import flash_attention as _fl
     out = _fl.launch(q, k, v, causal=causal, window=window)
     LAUNCHES["flash_attention"] += 1
@@ -305,7 +321,7 @@ def ssd_scan(xs: torch.Tensor, a: torch.Tensor, bm: torch.Tensor,
     if initial_state is not None:
         raise ValueError("ssd_scan: the kernel starts from a zero state; "
                          "initial_state must be None")
-    _common_device("ssd_scan", xs, a, bm, cm)
+    dev = _common_device("ssd_scan", xs, a, bm, cm, meta=True)
     for nm, t in (("xs", xs), ("a", a), ("bm", bm), ("cm", cm)):
         if t.dtype != torch.float32:
             raise TypeError(f"ssd_scan: {nm} must be float32, got {t.dtype}")
@@ -328,8 +344,12 @@ def ssd_scan(xs: torch.Tensor, a: torch.Tensor, bm: torch.Tensor,
     if q > _ssd.MAX_CHUNK or n > _ssd.MAX_STATE:
         raise ValueError(f"ssd_scan: chunk length {q} or state size {n} "
                          f"above the kernel's {_ssd.MAX_CHUNK}")
-    if xs.device.type == "cpu":
+    if dev.type == "cpu":
         return ref.ssd_scan(xs, a, bm, cm)
+    if dev.type == "meta":
+        roofline.count_kernel("ssd_scan",
+                              *roofline.ssd_scan_cost(b, nc, q, h, p, n))
+        return torch.empty_like(xs), xs.new_empty((b, h, p, n))
     y, state = _ssd.launch(xs, a, bm, cm)
     LAUNCHES["ssd_scan"] += 1
     return y, state
@@ -341,7 +361,7 @@ def expert_gemm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     sums, rounded once (kernel K5).  Any C, D and F >= 1.
     Forward-only."""
     _forward_only("expert_gemm", x, w)
-    _common_device("expert_gemm", x, w)
+    dev = _common_device("expert_gemm", x, w, meta=True)
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError("expert_gemm: x must be float32 or bfloat16, got "
                         f"{x.dtype}")
@@ -360,8 +380,13 @@ def expert_gemm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     for nm, t in (("x", x), ("w", w)):
         if not t.is_contiguous():
             raise ValueError(f"expert_gemm: {nm} must be contiguous")
-    if x.device.type == "cpu":
+    if dev.type == "cpu":
         return ref.expert_gemm(x, w)
+    if dev.type == "meta":
+        f = w.shape[2]
+        roofline.count_kernel("expert_gemm", *roofline.expert_gemm_cost(
+            e, c, d, f, x.element_size()))
+        return x.new_empty((e, c, f))
     from repro_torch.kernels import expert_gemm as _eg
     out = _eg.launch(x, w)
     LAUNCHES["expert_gemm"] += 1

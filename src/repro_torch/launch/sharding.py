@@ -21,12 +21,17 @@ The port keeps per-layer leaves in a list of dicts where the JAX package
 stacks them on ``(L, ...)`` (``repro_torch/convert.py``), so a layer
 leaf's spec here is the JAX package's without its leading stacked
 ``None``s; the rules right-align on the trailing dims, so dropping those
-dims changes no other entry.  Placing a tree by its specs waits for the
-dry run (ROADMAP queue 1).
+dims changes no other entry.  Where the JAX package's
+``param_shardings`` gives a ``NamedSharding`` per leaf, the port's gives
+a ``LeafSharding``: the leaf's spec, its shape and the shape one device
+holds; the dry run (``launch/dryrun.py``) sums the per-device bytes
+from these.
 """
 from __future__ import annotations
 
-from typing import Any, Sequence, Tuple
+import dataclasses
+import math
+from typing import Any, Dict, Sequence, Tuple
 
 from repro_torch.launch.mesh import Mesh, data_axes, mesh_axis_size
 
@@ -132,6 +137,60 @@ def param_specs(mesh: Mesh, params) -> Any:
         lambda p, leaf: param_spec(mesh, p, _shape(leaf)), params)
 
 
+@dataclasses.dataclass(frozen=True)
+class LeafSharding:
+    """One leaf as a mesh holds it: its ``spec``, its ``shape``, the
+    ``local_shape`` of each device's block (each dim over the product of
+    its axes' sizes; the specs split only dims that those divide) and
+    the whole leaf's ``nbytes`` (0 for a host scalar)."""
+
+    spec: Spec
+    shape: Tuple[int, ...]
+    local_shape: Tuple[int, ...]
+    nbytes: int
+
+    def divisor(self, mesh: Mesh, axes=None) -> int:
+        """The number of blocks the spec cuts the leaf into, counting
+        only the axes in ``axes`` when it is given."""
+        names = [a for entry in self.spec if entry is not None
+                 for a in ((entry,) if isinstance(entry, str) else entry)]
+        return math.prod(mesh.shape[a] for a in names
+                         if axes is None or a in axes)
+
+    @property
+    def local_nbytes(self) -> int:
+        n = math.prod(self.shape)
+        return self.nbytes // n * math.prod(self.local_shape) if n else 0
+
+
+def leaf_sharding(mesh: Mesh, spec: Spec, leaf) -> LeafSharding:
+    shape = _shape(leaf)
+    local = tuple(dim // _axis_size(mesh, axis)
+                  for dim, axis in zip(shape, spec))
+    nbytes = 0 if isinstance(leaf, (int, float)) else \
+        leaf.numel() * leaf.element_size()
+    return LeafSharding(tuple(spec), shape, local, nbytes)
+
+
+def param_shardings(mesh: Mesh, params) -> Any:
+    """The tree of ``LeafSharding``s matching ``params``."""
+    return _map_with_path(
+        lambda p, leaf: leaf_sharding(mesh, param_spec(mesh, p,
+                                                       _shape(leaf)), leaf),
+        params)
+
+
+def flat_shardings(tree, path=()) -> Dict[str, LeafSharding]:
+    """``{'/' path: LeafSharding}`` of a tree of them."""
+    if isinstance(tree, LeafSharding):
+        return {"/".join(path): tree}
+    items = tree.items() if isinstance(tree, dict) else enumerate(tree)
+    out: Dict[str, LeafSharding] = {}
+    for k, v in items:
+        out.update(flat_shardings(v, path + (str(k),)))
+    return out
+
+
 # ---------------------------------------------------------------------------
 # Activation / batch / cache specs
 # ---------------------------------------------------------------------------
@@ -179,3 +238,10 @@ def cache_specs(mesh: Mesh, cache, batch: int) -> Any:
     gets the empty spec of a scalar."""
     return _map_with_path(
         lambda p, leaf: cache_spec(mesh, p, _shape(leaf), batch), cache)
+
+
+def cache_shardings(mesh: Mesh, cache, batch: int) -> Any:
+    """The tree of ``LeafSharding``s matching a decode ``cache``."""
+    return _map_with_path(
+        lambda p, leaf: leaf_sharding(mesh, cache_spec(mesh, p, _shape(leaf),
+                                                       batch), leaf), cache)

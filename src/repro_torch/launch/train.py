@@ -32,7 +32,7 @@ on a zero prefix of ``num_prefix`` embeddings, as the JAX package's CLI.
 from __future__ import annotations
 
 import argparse
-from typing import Callable
+from typing import Callable, Optional
 
 import torch
 
@@ -79,13 +79,17 @@ def make_train_step(cfg: ModelConfig, *, optimizer: str = "sgd",
                     lr: float = 0.1, momentum: float = 0.5,
                     window: int = 0, backend: str = "torch",
                     remat: bool = True, fused_ce: bool = True,
-                    microbatch: int = 1) -> Callable:
+                    microbatch: int = 1,
+                    on_microbatch: Optional[Callable[[int], None]] = None
+                    ) -> Callable:
     """``microbatch`` > 1 splits the batch on its leading axis into that
     many microbatches, run one after another with the same
     ``choice_key``: their gradients are summed in float32 (from zeros,
     in order) and scaled by ``1 / microbatch``, as is the loss.
     Activation memory falls by the same factor; the arithmetic is
-    unchanged.  ``backend`` is taken as the JAX package's is, but only
+    unchanged.  ``on_microbatch(i)``, where given, is called once
+    microbatch i's gradients are summed (the dry run reads the work of
+    one microbatch between two calls).  ``backend`` is taken as the JAX package's is, but only
     ``"torch"`` and ``"chunked"`` train: every LM family reaches K3, K4
     or K5 on ``"kernel"``, and those refuse a gradient."""
     if optimizer not in OPTIMIZERS:
@@ -123,6 +127,8 @@ def make_train_step(cfg: ModelConfig, *, optimizer: str = "sgd",
                 if g is not None:
                     acc[k].add_(g)
             tot = tot + loss
+            if on_microbatch is not None:
+                on_microbatch(i)
         scale = 1.0 / microbatch
         return tot * scale, {k: g * scale for k, g in acc.items()}
 

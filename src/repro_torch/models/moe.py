@@ -103,7 +103,11 @@ def route(p, x2: torch.Tensor, cfg: ModelConfig) -> Dict[str, torch.Tensor]:
 
     me = probs.mean(dim=0)
     flat = expert.reshape(-1)
-    ce = torch.bincount(flat, minlength=e).float() / (t * k)
+    # choices per expert: a fixed-size count (bincount's integers, with
+    # no host sync and a meta form), out of place as the rest
+    counts = torch.zeros(e, dtype=flat.dtype, device=flat.device).scatter_add(
+        0, flat, torch.ones_like(flat))
+    ce = counts.float() / (t * k)
     aux = e * torch.sum(me * ce)
 
     # rank every choice within its expert by one stable sort over the t*k

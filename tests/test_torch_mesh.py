@@ -64,6 +64,7 @@ from repro_torch.engine import ClientSimConfig, FedAvgBaseline, \
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.launch import policy  # noqa: E402
 from repro_torch.launch import sharding  # noqa: E402
+from repro_torch.launch import specs  # noqa: E402
 from repro_torch.launch.mesh import Mesh, all_gather, all_to_all, \
     data_axes, fsdp_axes, make_host_mesh, make_production_mesh, \
     mesh_axis_size, psum  # noqa: E402
@@ -802,12 +803,6 @@ def test_pinned_attention_matches_reference(ref):
 # launch/sharding.py: the specs of every architecture at full size
 # ---------------------------------------------------------------------------
 
-class MetaGenerator(torch.Generator):
-    """A generator whose draws land on the meta device: the port's init
-    then allocates nothing (deepseek-67b is 134 GB in bf16)."""
-    device = torch.device("meta")
-
-
 def assert_specs_match(jspec, spec, stacked=0):
     """The port's spec tree against the JAX package's: a list level of
     the port (per-layer dicts) is a leading stacked axis of the JAX
@@ -834,7 +829,7 @@ def arch_trees(ref):
     out = {}
     for arch in ARCH_IDS:
         jcfg, cfg = ref.get_config(arch), get_config(names[arch])
-        params = tr.init_params(MetaGenerator(), cfg)
+        params = specs.abstract_params(cfg)     # on meta: nothing allocated
         jparams = ref.specs.abstract_params(jcfg)
         enc = cfg.num_prefix if cfg.family == "audio" else 0
         caches = []
