@@ -12,8 +12,9 @@ Phases, each fatal on failure:
    one nvcc per source, all started together (ptxas's report of
    registers and spills logged); the tensor-core flash attention's
    registers, local and shared memory per variant, the tensor-core
-   expert GEMM's and those of the SSD scan's stage kernels, with no local
-   memory (no spill);
+   expert GEMM's, the TMA-fed float32 flash attention's per variant and
+   float32 expert GEMM's, and those of the SSD scan's stage kernels, with
+   no local memory (no spill);
 3. check: each kernel against its plain PyTorch version on the card, at
    the main path's shapes and at ragged ones: fill-aggregation within
    rtol = atol = 1e-6, and its in-place variant (``donate_prev``) bit for
@@ -57,7 +58,8 @@ Phases, each fatal on failure:
    GEMM (K5) against their plain versions on the card: K3 in float32 and
    bfloat16 at the shapes of the
    JAX package's kernel sweep (GQA, MQA, S = 384), S = 100 (one ragged
-   tile), S = 300 (a ragged last tile past 128), head dims 80 and 36, qwen1.5-0.5b's prefill (4, 1024, 16, 16,
+   tile), S = 300 (a ragged last tile past 128), head dims 80, 36, 30
+   and 256, qwen1.5-0.5b's prefill (4, 1024, 16, 16,
    64), granite-moe-1b-a400m's (4, 1024, 16, 8, 64) and the dense
    shelf's at head dim 128: chatglm3-6b's (4, 1024, 32, 2, 128),
    starcoder2-3b's (4, 1024, 24, 2, 128) and deepseek-67b's (4, 1024,
@@ -68,7 +70,8 @@ Phases, each fatal on failure:
    each causal, with window 64 and 256, and bidirectional (rtol 2e-5 /
    atol 1e-4 in float32, 2^-7 / 1e-3 in bfloat16: one rounding of the
    output), each call on the kernel its dtype and head dim select (bf16
-   with D % 8 == 0: the tensor-core kernel; else the CUDA-core one), and
+   with D % 8 == 0: the tensor-core kernel; float32 with D % 4 == 0: the
+   TMA-fed float32 kernel; else the CUDA-core one), and
    starcoder2-3b's long prefill (1, 8192, 24, 2, 128) at its window of
    4096, longer than any tile, to the same limits, where the plain
    version without the window (and in float32 with it one key longer)
@@ -87,16 +90,19 @@ Phases, each fatal on failure:
    (rtol = atol = 1e-5 in float32, 2^-7 / 1e-3 in bfloat16), each call
    on the kernel its dtype and shape select (bf16 with D and F multiples
    of 8: the tensor-core kernel; other bf16: the mma.sync kernel;
-   float32: the CUDA-core kernel), and ``ops.expert_ffn`` (three K5
+   float32 with D and F multiples of 4: the TMA-fed float32 kernel;
+   other float32: the CUDA-core kernel), and ``ops.expert_ffn`` (three K5
    launches) against the einsum ``moe.expert_ffn`` at granite's prefill
    shape; each timed at its serving shape beside its bound and its plain
-   version, K3 also beside ``scaled_dot_product_attention`` (at qwen's
+   version, K3 in bf16 and float32 also beside
+   ``scaled_dot_product_attention`` of the same dtype (the kernels it
+   launches in float32 logged) (at qwen's
    and granite's shapes and at window 256, at the dense shelf's three
    prefills, at starcoder2's 1 x 8192 tokens at window 4096, at
    zamba2's, at internvl2's and whisper's decoder's, causal, and at
    whisper's encoder's, bidirectional), K4 beside the torch route's
-   chunked scan (at mamba2's and zamba2's shapes), and K5 beside ``torch.bmm`` (at granite's wi and wo
-   shapes);
+   chunked scan (at mamba2's and zamba2's shapes), and K5 in bf16 and
+   float32 beside ``torch.bmm`` (at granite's wi and wo shapes);
 10. the serving path at full width, bf16, seeded random weights on the
    card, 4 requests: for qwen1.5-0.5b (1024-token prompt; also with
    window 256), mamba2-780m (1000-token prompt: chunk padding),
@@ -118,7 +124,7 @@ Phases, each fatal on failure:
    K5, one K3 per application point of zamba2's shared block: 54 K4
    and 9 K3, and one per whisper encoder layer: 64 K3, 32 of them
    bidirectional; every K3 and K5 of a bf16 prefill on its tensor-core kernel, of a
-   float32 one on its CUDA-core kernel; one launch of each of K4's stage
+   float32 one on its TMA-fed float32 kernel; one launch of each of K4's stage
    kernels per K4 call) against the torch route, within
    LOGIT_TOL of the logits' largest
    magnitude (15 % in bf16; 0.1 % in a float32 prefill at the same
@@ -809,11 +815,11 @@ def expect_fill_variants(label: str, in_place: int, out_of_place: int
 def expect_variants(label: str, cfg, per_prefill: dict) -> None:
     """The K3 and K5 launches of one prefill by kernel: all on the
     tensor-core kernels in bf16 (every config's head dim and expert
-    widths are multiples of 8), all on the CUDA-core kernels in
-    float32; and K4's: one launch of each of its stage kernels per
-    call."""
+    widths are multiples of 8), all on the TMA-fed float32 kernels in
+    float32 (multiples of 4); and K4's: one launch of each of its stage
+    kernels per call."""
     which = "tensor_core" if cfg.torch_dtype == torch.bfloat16 \
-        else "cuda_core"
+        else "fp32_tma"
     for name, counts in (("flash_attention", flash.VARIANT_LAUNCHES),
                          ("expert_gemm", egemm.VARIANT_LAUNCHES)):
         n = per_prefill.get(name, 0)
@@ -1274,12 +1280,14 @@ WHISPER_ENC = (4, 1500, 20, 20, 64)
 WHISPER_DEC = (4, 448, 20, 20, 64)
 # the sweep's shapes, a ragged tile, a ragged last tile past 128 (the
 # TPU kernel asserts S <= 128 or a multiple of 128; zamba2's prompts are
-# 1000 tokens), head dims 80 (zamba2) and 36 (bf16 with D % 8 != 0: the
-# CUDA-core kernel), qwen's and granite's prefills, the dense shelf's,
-# zamba2's, internvl2's and whisper's
+# 1000 tokens), head dims 80 (zamba2), 36 (bf16 with D % 8 != 0: the
+# CUDA-core kernel) and 30 (float32 with D % 4 != 0: the CUDA-core
+# kernel; TMA needs 16-byte strides), the largest head dim (256), qwen's
+# and granite's prefills, the dense shelf's, zamba2's, internvl2's and
+# whisper's
 FLASH_CASES = [(2, 128, 4, 4, 64), (1, 256, 4, 2, 128), (1, 384, 6, 1, 64),
                (2, 100, 4, 2, 64), (1, 300, 4, 2, 64), (1, 256, 4, 4, 80),
-               (1, 256, 4, 2, 36),
+               (1, 256, 4, 2, 36), (1, 256, 4, 2, 30), (1, 200, 2, 1, 256),
                QWEN_ATTN, GRANITE_ATTN, CHATGLM_ATTN, STARCODER_ATTN,
                DEEPSEEK_ATTN, ZAMBA_ATTN, INTERNVL_ATTN, WHISPER_ENC,
                WHISPER_DEC]
@@ -1294,6 +1302,9 @@ FLASH_TIMED = [(QWEN_ATTN, 0, True), (GRANITE_ATTN, 0, True),
 # head dims of the tensor-core kernel's four variants (D <= 64, 128, 192,
 # 256), whose registers, local memory and shared memory are reported
 TC_HEAD_DIMS = (64, 128, 192, 256)
+# and of the TMA-fed float32 kernel's four variants (D <= 64, 96, 128,
+# 256)
+FP32_HEAD_DIMS = (64, 96, 128, 256)
 FLASH_MASKS = [(True, 0), (True, 64), (True, 256), (False, 0)]
 # K4's cases as (shape, decay): a = -|normal| x decay.  The sweep's
 # shapes, two P tiles, mamba2's and zamba2's prefills; then one chunk (the state pass
@@ -1383,8 +1394,9 @@ MESH_PREFILL_TOL = {torch.bfloat16: 1e-3, torch.float32: 1e-5}
 GEMM_TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (2 ** -7, 1e-3)}
 GRANITE_WI = (32, 1280, 1024, 512)      # E, C, D, F: 4 x 1024 tokens, top 8
 GRANITE_WO = (32, 1280, 512, 1024)
-# (2, 64, 100, 70): rows of 200 and 140 bytes, which TMA cannot describe,
-# so bf16 takes the mma.sync kernel
+# (2, 64, 100, 70): w and out rows of 140 bytes (bf16) or 280 (float32),
+# which TMA cannot describe, so bf16 takes the mma.sync kernel and
+# float32 the CUDA-core one
 GEMM_CASES = [(2, 128, 256, 128), (4, 256, 256, 384), (1, 128, 512, 256),
               (2, 8, 200, 72), (2, 100, 200, 72), (2, 1256, 200, 72),
               GRANITE_WI, GRANITE_WO, (32, 8, 1024, 512), (2, 64, 100, 70)]
@@ -1429,34 +1441,36 @@ def check_flash_call(q, k, v, causal: bool, window: int, which: str,
     return err, plain
 
 
-def check_flash() -> float:
+def check_flash() -> dict:
     """K3 against its plain version at every case and mask, in float32
-    and bf16; each call must run one kernel: the tensor-core kernel for
-    bf16 with D % 8 == 0, else the CUDA-core kernel.  Then starcoder2's
-    long prefill at its own window, which is longer than any tile, held
-    to the same limits; there the plain version without the window (and,
-    in float32, with the window one key longer) must fall outside them,
-    so a kernel that ignored or misplaced the cut-off would fail."""
-    worst = 0.0
+    and bf16; each call must run the one kernel ``flash.variant`` names
+    (all inputs here are 16-byte aligned): the tensor-core kernel for
+    bf16 with D % 8 == 0, the TMA-fed float32 kernel for float32 with D %
+    4 == 0, else the CUDA-core kernel.  Then starcoder2's long prefill at
+    its own window, which is longer than any tile, held to the same
+    limits; there the plain version without the window (and, in float32,
+    with the window one key longer) must fall outside them, so a kernel
+    that ignored or misplaced the cut-off would fail.  Returns the
+    largest |kernel - plain| by dtype."""
+    worst = {}
     for dtype in (torch.float32, torch.bfloat16):
         tol = FLASH_TOL[dtype]
         name = str(dtype)[6:]
+        worst[dtype] = 0.0
         for i, shape in enumerate(FLASH_CASES):
             q, k, v = flash_inputs(*shape, dtype, seed=200 + i)
-            which = "tensor_core" if (dtype == torch.bfloat16
-                                      and shape[-1] % 8 == 0) \
-                else "cuda_core"
+            which = flash.variant(dtype, shape[-1])
             for causal, window in FLASH_MASKS:
                 err, _ = check_flash_call(q, k, v, causal, window, which,
                                           tol, f"{name} {shape}")
-                worst = max(worst, err)
+                worst[dtype] = max(worst[dtype], err)
             del q, k, v
         shape, window = STARCODER_LONG
         q, k, v = flash_inputs(*shape, dtype, seed=250)
-        which = "tensor_core" if dtype == torch.bfloat16 else "cuda_core"
+        which = flash.variant(dtype, shape[-1])
         err, plain = check_flash_call(q, k, v, True, window, which, tol,
                                       f"{name} {shape}")
-        worst = max(worst, err)
+        worst[dtype] = max(worst[dtype], err)
         witnesses = [("no window", 0)]
         if dtype == torch.float32:
             witnesses.append((f"window {window + 1}", window + 1))
@@ -1557,55 +1571,81 @@ def check_ssd() -> float:
     return worst
 
 
+def cuda_kernels(fn) -> list:
+    """Names of the CUDA kernels one call of ``fn`` launches (from
+    ``torch.profiler``), for the log."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sorted({e.key for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA})
+
+
 def time_flash(card: str) -> dict:
-    """K3 at the FLASH_TIMED cases, bf16, causal or bidirectional, each
-    beside ``scaled_dot_product_attention`` on the same shape and mask
-    (GQA as ``enable_gqa``, the window as a boolean mask).  Bound: q, k, v read
-    and out written once; 4 D flops per unmasked (query, key) pair (q.k
-    and p.v) at the bf16 tensor-core rate.  The plain version is timed at
-    every case.  Returns the first case's numbers, with every case under
-    ``cases``."""
+    """K3 at the FLASH_TIMED cases, bf16 and float32, causal or
+    bidirectional, each beside ``scaled_dot_product_attention`` on the
+    same shape, mask and dtype (GQA as ``enable_gqa``, the window as a
+    boolean mask; float32 with TF32 off, as ``main`` sets it, and the
+    kernels it launched logged).  Bound: q, k, v read and out written
+    once; 4 D flops per unmasked (query, key) pair (q.k and p.v) at the
+    bf16 tensor-core rate, or the float32 CUDA-core rate (the TPU
+    kernel's float32 products).  The plain version is timed at every
+    case.  Returns bf16's first case's numbers, with every case under
+    ``cases``, and float32's the same way under ``float32``."""
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    cases = []
-    for shape, window, causal in FLASH_TIMED:
-        b, s, h, kh, d = shape
-        q, k, v = flash_inputs(*shape, torch.bfloat16, seed=9)
-        nbytes, flops = flash_attention_cost(*shape, q.element_size(),
-                                             causal, window)
-        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))  # (B, H, S, D)
-        qi = torch.arange(s, device="cuda")[:, None]
-        ki = torch.arange(s, device="cuda")[None, :]
-        mask = (ki <= qi) & (ki > qi - window) if window else None
+    out = {}
+    for dtype, peak in ((torch.bfloat16, BF16_FLOPS),
+                        (torch.float32, FP32_FLOPS)):
+        cases = []
+        for shape, window, causal in FLASH_TIMED:
+            b, s, h, kh, d = shape
+            q, k, v = flash_inputs(*shape, dtype, seed=9)
+            nbytes, flops = flash_attention_cost(*shape, q.element_size(),
+                                                 causal, window)
+            qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))  # (B, H, S, D)
+            qi = torch.arange(s, device="cuda")[:, None]
+            ki = torch.arange(s, device="cuda")[None, :]
+            mask = (ki <= qi) & (ki > qi - window) if window else None
 
-        def kernel():
-            return ops.flash_attention(q, k, v, causal=causal, window=window)
+            def kernel():
+                return ops.flash_attention(q, k, v, causal=causal,
+                                           window=window)
 
-        def library():      # the nearest single PyTorch call; never used
-            if mask is None:
-                return sdpa(qt, kt, vt, is_causal=causal,
-                            enable_gqa=kh != h)
-            return sdpa(qt, kt, vt, attn_mask=mask, enable_gqa=kh != h)
+            def library():      # the nearest single PyTorch call; unused
+                if mask is None:
+                    return sdpa(qt, kt, vt, is_causal=causal,
+                                enable_gqa=kh != h)
+                return sdpa(qt, kt, vt, attn_mask=mask, enable_gqa=kh != h)
 
-        res = {"shape": list(shape), "window": window, "causal": causal,
-               "ms": device_ms(kernel, 20),
-               "library_ms": device_ms(library, 20),
-               "plain_ms": device_ms(lambda: ref.flash_attention(
-                   q, k, v, causal=causal, window=window), 5),
-               **bound(nbytes, flops, BF16_FLOPS)}
-        call_ms = median_ms(kernel, 20)
-        log(f"timing flash_attention {shape} bf16 "
-            f"{'causal' if causal else 'bidirectional'} window {window} "
-            f"on {card}: kernel {res['ms']!r} ms (one call with its "
-            f"dispatch {call_ms!r} ms), bound {res['bound_ms']!r} ms "
-            f"({res['bound_by']}, {nbytes} B, {flops} flop), plain "
-            f"{res['plain_ms']!r} ms, library (sdpa) "
-            f"{res['library_ms']!r} ms")
-        cases.append(res)
-        del q, k, v, qt, kt, vt
-    torch.cuda.empty_cache()
-    first = {key: cases[0][key] for key in ("ms", "plain_ms", "library_ms",
-                                            "bound_ms", "bound_by")}
-    return {**first, "cases": cases}
+            res = {"shape": list(shape), "window": window, "causal": causal,
+                   "variant": flash.variant(dtype, d),
+                   "ms": device_ms(kernel, 20),
+                   "library_ms": device_ms(library, 20),
+                   "plain_ms": device_ms(lambda: ref.flash_attention(
+                       q, k, v, causal=causal, window=window), 5),
+                   **bound(nbytes, flops, peak)}
+            if dtype == torch.float32:
+                res["library_kernels"] = cuda_kernels(library)
+            call_ms = median_ms(kernel, 20)
+            log(f"timing flash_attention {shape} {str(dtype)[6:]} "
+                f"{'causal' if causal else 'bidirectional'} window {window} "
+                f"on {card}: kernel ({res['variant']}) {res['ms']!r} ms (one "
+                f"call with its dispatch {call_ms!r} ms), bound "
+                f"{res['bound_ms']!r} ms ({res['bound_by']}, {nbytes} B, "
+                f"{flops} flop), plain {res['plain_ms']!r} ms, library "
+                f"(sdpa) {res['library_ms']!r} ms"
+                + (f" launching {res['library_kernels']}"
+                   if dtype == torch.float32 else ""))
+            cases.append(res)
+            del q, k, v, qt, kt, vt
+        torch.cuda.empty_cache()
+        out[dtype] = {**{key: cases[0][key] for key in (
+            "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")},
+            "cases": cases}
+    return {**out[torch.bfloat16], "float32": out[torch.float32]}
 
 
 def tensor_core_resources() -> dict:
@@ -1619,6 +1659,20 @@ def tensor_core_resources() -> dict:
     log(f"tensor-core flash_attention: {res}")
     if any(a["local_bytes"] for a in res["by_head_dim"].values()):
         raise AssertionError(f"tensor-core flash_attention spills: {res}")
+    return res
+
+
+def fp32_resources() -> dict:
+    """Registers a thread, local memory and shared memory of the TMA-fed
+    float32 kernels: K3's variant for each of FP32_HEAD_DIMS and K5's,
+    from the CUDA runtime; raises on any local memory (spills)."""
+    res = {"flash_attention": {d: flash.fp32_attributes(d)
+                               for d in FP32_HEAD_DIMS},
+           "expert_gemm": egemm.fp32_attributes()}
+    log(f"float32 TMA kernels: {res}")
+    if any(a["local_bytes"] for a in res["flash_attention"].values()) \
+            or res["expert_gemm"]["local_bytes"]:
+        raise AssertionError(f"float32 TMA kernels spill: {res}")
     return res
 
 
@@ -1692,13 +1746,15 @@ def scaled_gap(out, plain, rtol, atol, label) -> float:
     return err
 
 
-def check_expert_gemm() -> float:
+def check_expert_gemm() -> dict:
     """K5 against its plain version at every case, in float32 and bf16;
     each call must run the one kernel ``egemm.variant`` names for its
-    dtype and shape (all inputs here are 16-byte aligned)."""
-    worst = 0.0
+    dtype and shape (all inputs here are 16-byte aligned).  Returns the
+    largest |kernel - plain| by dtype."""
+    worst = {}
     for dtype in (torch.float32, torch.bfloat16):
         rtol, atol = GEMM_TOL[dtype]
+        worst[dtype] = 0.0
         for i, shape in enumerate(GEMM_CASES):
             x, w = gemm_inputs(*shape, dtype, seed=400 + i)
             which = egemm.variant(dtype, shape[2], shape[3])
@@ -1712,7 +1768,7 @@ def check_expert_gemm() -> float:
             if out.shape != shape[:2] + shape[3:] or out.dtype != dtype:
                 raise AssertionError(f"expert_gemm {shape}: output "
                                      f"{tuple(out.shape)} {out.dtype}")
-            worst = max(worst, scaled_gap(
+            worst[dtype] = max(worst[dtype], scaled_gap(
                 out, ref.expert_gemm(x, w), rtol, atol,
                 f"expert_gemm {str(dtype)[6:]} {shape} ({which})"))
             del x, w, out
@@ -1744,12 +1800,13 @@ def check_expert_ffn() -> None:
 
 
 def time_expert_gemm(card: str) -> dict:
-    """K5 at granite's wi and wo shapes, bf16 (and, logged, float32), each
-    beside ``torch.bmm``.  Bound: x and w read and out written once; 2 E
-    C D F operations at the tensor-core rate of the inputs' type (bf16),
-    or the float32 CUDA-core rate (float32: the TPU kernel's contract has
-    no TF32).  Returns the
-    bf16 wi shape's numbers, with the wo shape's under ``wo``."""
+    """K5 at granite's wi and wo shapes, bf16 and float32, each beside
+    ``torch.bmm`` (float32 with TF32 off, as ``main`` sets it).  Bound: x
+    and w read and out written once; 2 E C D F operations at the
+    tensor-core rate of the inputs' type (bf16), or the float32 CUDA-core
+    rate (float32: the TPU kernel's contract has no TF32).  Returns the bf16
+    wi shape's numbers, with the wo shape's under ``wo``, and float32's
+    the same way under ``float32``."""
     res = {}
     for shape in (GRANITE_WI, GRANITE_WO):
         e, c, d, f = shape
@@ -1757,13 +1814,14 @@ def time_expert_gemm(card: str) -> dict:
                             (torch.float32, FP32_FLOPS)):
             x, w = gemm_inputs(*shape, dtype, seed=11)
             nbytes, flops = expert_gemm_cost(*shape, x.element_size())
-            r = {"ms": device_ms(lambda: ops.expert_gemm(x, w), 20),
+            which = egemm.variant(dtype, d, f)
+            r = {"variant": which,
+                 "ms": device_ms(lambda: ops.expert_gemm(x, w), 20),
                  "plain_ms": device_ms(lambda: ref.expert_gemm(x, w), 5),
                  # the nearest single PyTorch call; timed here, never used
                  "library_ms": device_ms(lambda: torch.bmm(x, w), 20),
                  **bound(nbytes, flops, peak)}
             call_ms = median_ms(lambda: ops.expert_gemm(x, w), 20)
-            which = egemm.variant(dtype, d, f)
             log(f"timing expert_gemm {shape} {str(dtype)[6:]} ({which}) on "
                 f"{card}: kernel {r['ms']!r} ms (one call with its dispatch "
                 f"{call_ms!r} ms), bound {r['bound_ms']!r} ms "
@@ -1774,7 +1832,9 @@ def time_expert_gemm(card: str) -> dict:
             del x, w
     torch.cuda.empty_cache()
     return {**res[GRANITE_WI, torch.bfloat16],
-            "wo": res[GRANITE_WO, torch.bfloat16]}
+            "wo": res[GRANITE_WO, torch.bfloat16],
+            "float32": {**res[GRANITE_WI, torch.float32],
+                        "wo": res[GRANITE_WO, torch.float32]}}
 
 
 def expert_gemm_resources() -> dict:
@@ -1974,10 +2034,10 @@ def compare_routes(cfg, params, batch, window: int, per_prefill: dict,
     return got
 
 
-def serve_arch(arch: str, card: str) -> dict:
+def serve_arch(arch: str, card: str) -> tuple:
     """Phase 10 for one arch at full width (and its full depth but where
     its "depth" cuts it).  Returns the kernel launches of one
-    kernel-route prefill (window 0)."""
+    kernel-route prefill (window 0), bf16 and float32."""
     run = SERVE[arch]
     cfg = get_config(arch)
     if "depth" in run:
@@ -2031,8 +2091,8 @@ def serve_arch(arch: str, card: str) -> dict:
     cfg32 = cfg.replace(dtype="float32")
     params32 = tr.init_params(
         torch.Generator(device="cuda").manual_seed(0), cfg32)
-    compare_routes(cfg32, params32, batch, 0, per_prefill,
-                   f"{arch} prefill in float32", card)
+    launches32 = compare_routes(cfg32, params32, batch, 0, per_prefill,
+                                f"{arch} prefill in float32", card)
     if "prompt" in chunked:
         compare_chunked(cfg32, params32, batch, 0,
                         f"{arch} prefill in float32", card)
@@ -2080,7 +2140,7 @@ def serve_arch(arch: str, card: str) -> dict:
         "the decode)")
     del params, cache, enc_out
     torch.cuda.empty_cache()
-    return launches
+    return launches, launches32
 
 
 def check_replay_smoke() -> None:
@@ -3477,6 +3537,7 @@ def main() -> int:
                 log(f"  {name}: {line.strip()}")
     tc_resources = tensor_core_resources()
     gemm_resources = expert_gemm_resources()
+    f32_resources = fp32_resources()
     ssd_stage_resources = ssd_resources()
 
     # 3. each kernel against its plain version (these launches don't count)
@@ -3614,12 +3675,16 @@ def main() -> int:
     gemm_err = check_expert_gemm()
     check_expert_ffn()
     flash_timing = time_flash(card)
+    flash32_timing = flash_timing.pop("float32")
     ssd_timing = time_ssd(card)
     gemm_timing = time_expert_gemm(card)
+    gemm32_timing = gemm_timing.pop("float32")
 
     # 10. the serving path at full width, then the smoke-size replay check
     with torch.inference_mode():
-        serve_launches = {arch: serve_arch(arch, card) for arch in SERVE}
+        served = {arch: serve_arch(arch, card) for arch in SERVE}
+        serve_launches = {arch: n[0] for arch, n in served.items()}
+        serve_launches32 = {arch: n[1] for arch, n in served.items()}
         check_replay_smoke()
 
     # 11. the batched vmap backend at full width against phase 5's run
@@ -3740,7 +3805,8 @@ def main() -> int:
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:86",
         "launches": serve_launches["qwen1.5-0.5b"]["flash_attention"],
-        "max_abs_err": flash_err, **flash_timing, **tc_resources,
+        "max_abs_err": flash_err[torch.bfloat16], **flash_timing,
+        **tc_resources,
         "serve_launches": {a: n["flash_attention"] for a, n in
                            serve_launches.items() if n["flash_attention"]},
         "supernet_launches": {a: {k: n.get("flash_attention", 0)
@@ -3767,10 +3833,31 @@ def main() -> int:
         "source": "src/repro_torch/kernels/csrc/expert_gemm.cu",
         "replaces": "src/repro/kernels/expert_gemm.py:38",
         "launches": serve_launches["granite-moe-1b-a400m"]["expert_gemm"],
-        "max_abs_err": gemm_err, **gemm_timing, **gemm_resources,
+        "max_abs_err": gemm_err[torch.bfloat16], **gemm_timing,
+        **gemm_resources,
         "supernet_launches": {k: n.get("expert_gemm", 0) for k, n in
                               supernet_launches_by_key[
                                   "granite-moe-1b-a400m"].items()},
+    }, {
+        # K3 in float32: the TMA-fed FP32-FMA kernel of every float32
+        # prefill; launches of qwen's float32 prefill
+        "name": "flash_attention_fp32", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:86",
+        "launches": serve_launches32["qwen1.5-0.5b"]["flash_attention"],
+        "max_abs_err": flash_err[torch.float32], **flash32_timing,
+        "variant": flash.variant(torch.float32, QWEN_ATTN[-1]),
+        "resources": f32_resources["flash_attention"],
+        "serve_launches": {a: n["flash_attention"] for a, n in
+                           serve_launches32.items() if n["flash_attention"]},
+    }, {
+        # K5 in float32; launches of granite's float32 prefill
+        "name": "expert_gemm_fp32", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/expert_gemm.cu",
+        "replaces": "src/repro/kernels/expert_gemm.py:38",
+        "launches": serve_launches32["granite-moe-1b-a400m"]["expert_gemm"],
+        "max_abs_err": gemm_err[torch.float32], **gemm32_timing,
+        "resources": f32_resources["expert_gemm"],
     }]
     if any(not math.isfinite(k[f]) for k in kernels
            for f in ("ms", "plain_ms", "bound_ms")):

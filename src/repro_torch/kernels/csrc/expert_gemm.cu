@@ -1,4 +1,4 @@
-// Grouped (per-expert) GEMM for Hopper (sm_90a): three kernels.
+// Grouped (per-expert) GEMM for Hopper (sm_90a): four kernels.
 //
 // Replaces the Pallas TPU kernel repro/kernels/expert_gemm.py::expert_gemm:
 //
@@ -16,14 +16,19 @@
 //     config's expert shapes): the tensor-core kernel (expert_gemm_tc_fwd);
 //   - bf16 otherwise (TMA needs 16-byte strides and bases): the mma.sync
 //     kernel (expert_gemm_fwd, dtype 1);
-//   - float32: the CUDA-core kernel (expert_gemm_fwd, dtype 0).
+//   - float32, D and F multiples of 4, x, w and out 16-byte aligned
+//     (every config's): the TMA-fed float32 kernel (expert_gemm_f32_fwd);
+//   - float32 otherwise: the CUDA-core kernel (expert_gemm_fwd, dtype 0).
 //
 // What bounds it on this card: at granite-moe-1b-a400m's prefill shape (E
 // 32, C 1280 slots, D 1024, F 512, bf16) one call moves 159.4 MB (47.6 us
 // at 3.35 TB/s) and does 42.9 GFLOP (43.4 us on the bf16 tensor cores), so
 // a kernel near the roofline is balanced between the two.  In float32 the
 // same work takes at least 641 us on the CUDA cores at 67 TFLOP/s (the TPU
-// kernel's contract is float32 products, so no TF32).
+// kernel's contract is float32 products, so no TF32 and no split TF32):
+// there the FP32 FMA pipe is the bound, and the design keeps it issuing
+// (operands from shared memory that TMA filled ahead, no barrier of the
+// whole block in the main loop, few loads per FMA).
 //
 // Design.  On the TPU the contraction axis is a sequential grid axis with a
 // (bc, bf) float32 accumulator in VMEM scratch.  Here a block owns output
@@ -54,7 +59,30 @@
 // tile's loads are already in flight meanwhile.  No atomics: the order of
 // every sum is fixed, and a call repeats bit for bit.
 //
-// CUDA-core and mma.sync kernels (float32, and bf16 that TMA cannot
+// TMA-fed float32 kernel.  The tensor-core kernel's frame around FP32
+// FMAs: a persistent grid walks the (expert, 128-row, 128-column) tiles
+// expert-major; one thread of a producer warpgroup (24 registers after
+// setmaxnreg) keeps a ring of four 32 KB stages full, each one
+// contraction step of 32: the x box (128 rows x 32 values, 128-byte
+// swizzle, as TMA leaves x's k-contiguous rows) and the w box (32 rows x
+// 128 columns as they lie), on a "full" and an "empty" mbarrier; ragged
+// C, D and F come from TMA's zero fill and a clipped store.  Two consumer
+// warpgroups, 16 x 16 threads, each own 8 rows x 8 columns of the tile
+// (64 accumulators): per 4 k values a thread reads its 8 rows' 16-byte
+// chunks of x along k (the swizzle puts the two rows a warp reads at once
+// in distinct banks, and its phase folds into one base a half step) and
+// per k two 16-byte chunks of w, then 64 FMAs: 16 shared-memory loads per
+// 256 FMAs, every offset an immediate.  Each consumer thread releases the
+// stage after its last read; the epilogue stores the registers straight
+// to global memory (F % 4 == 0: 16 bytes a store) while the next tile's
+// stages are already loading.  No atomics: a call repeats bit for bit.
+// 168 registers a thread (the entry count of a 384-thread block, which
+// ptxas sizes the consumers' code within) and no spill; an 8 x 16 tile
+// does not fit that, and without the producer warpgroup (thread 0 filling
+// the ring, 255 registers) the kernel ran slower, on NVIDIA H100 80GB
+// HBM3.
+//
+// CUDA-core and mma.sync kernels (float32 and bf16 that TMA cannot
 // describe).  One block of 256 threads owns one (expert, 128 x 128 output
 // tile) and walks D in steps of 32.  The x and w tiles of a step are
 // fetched with 16-byte global loads into registers while the block
@@ -626,6 +654,207 @@ int launch(const void* x, const void* w, void* out, int E, int C, int D,
 
 }  // namespace tc
 
+// ---------------------------------------------------------------------------
+// float32 on the CUDA cores: TMA ring, producer warpgroup, persistent grid
+// ---------------------------------------------------------------------------
+
+namespace f32 {
+
+constexpr int kBM = 128;          // output rows per tile
+constexpr int kBN = 128;          // output columns per tile
+constexpr int kBK = 32;           // contraction step: one 128-byte x row
+constexpr int kStages = 4;
+constexpr int kConsumers = 256;   // 16 x 16 threads of 8 x 8 outputs
+constexpr int kThreads = kConsumers + 128;
+// as the tensor-core kernel's: 24 + 2 x 240 = 3 x 168
+constexpr int kProducerRegs = 24;
+constexpr int kConsumerRegs = 240;
+
+// Shared memory of one block, from a 1024-byte boundary: four 32 KB
+// stages of [x box (128 rows x 32 values, 128-byte swizzle) | w box (32
+// rows x 128 values, as they lie)], then the mbarriers full[kStages],
+// empty[kStages]: 132,160 bytes with the alignment slack.
+struct Layout {
+  static constexpr uint32_t a_bytes = kBM * kBK * 4;
+  static constexpr uint32_t b_bytes = kBK * kBN * 4;
+  static constexpr uint32_t stage = a_bytes + b_bytes;
+  static constexpr uint32_t bar_off = kStages * stage;
+  static constexpr uint32_t bytes = bar_off + 16 * kStages
+      + 1024;                                  // slack for the alignment
+};
+constexpr int kSmem = static_cast<int>(Layout::bytes);
+static_assert(kBM == tc::kBM && kBN == tc::kBN,
+              "the tiles are walked as the tensor-core kernel's");
+
+__global__ void __launch_bounds__(kThreads, 1)
+gemm_f32_tma(const __grid_constant__ CUtensorMap tm_x,
+             const __grid_constant__ CUtensorMap tm_w,
+             float* __restrict__ out, int E, int C, int D, int F) {
+  using L = Layout;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = hopper::smem_u32(smem_raw);
+  const uint32_t pad = ((raw + 1023u) & ~1023u) - raw;
+  uint8_t* smem = smem_raw + pad;
+  const uint32_t base = raw + pad;
+  const uint32_t full_bar = base + L::bar_off;
+  const uint32_t empty_bar = full_bar + 8 * kStages;
+
+  const int tiles_m = (C + kBM - 1) / kBM;
+  const int tiles_n = (F + kBN - 1) / kBN;
+  const int tiles = E * tiles_m * tiles_n;
+  const int nk = (D + kBK - 1) / kBK;
+
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < kStages; ++st) {
+      hopper::mbar_init(full_bar + 8 * st, 1);
+      hopper::mbar_init(empty_bar + 8 * st, kConsumers);
+    }
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+  if (wg == 2) {
+    // ---- producer warpgroup: one thread keeps the ring full
+    hopper::reg_dealloc<kProducerRegs>();
+    if (threadIdx.x == kConsumers) {
+      hopper::tma_prefetch_map(&tm_x);
+      hopper::tma_prefetch_map(&tm_w);
+      int st = 0;
+      uint32_t phase = 0;
+      for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+        int e, m0, n0;
+        tc::tile_coords(t, tiles_m, tiles_n, e, m0, n0);
+        for (int i = 0; i < nk; ++i) {
+          const uint32_t full = full_bar + 8 * st;
+          const uint32_t dst = base + st * L::stage;
+          hopper::mbar_wait(empty_bar + 8 * st, phase ^ 1);
+          hopper::mbar_arrive_expect_tx(full, L::stage);
+          hopper::tma_load_4d(dst, &tm_x, full, i * kBK, m0, e, 0);
+          hopper::tma_load_4d(dst + L::a_bytes, &tm_w, full, n0, i * kBK, e,
+                              0);
+          if (++st == kStages) {
+            st = 0;
+            phase ^= 1;
+          }
+        }
+      }
+    }
+  } else {
+    // ---- consumers: thread (tx, ty) owns rows 4 ty + r and 64 + 4 ty + r
+    // (r < 4) and columns 4 tx + c and 64 + 4 tx + c (c < 4) of each tile
+    hopper::reg_alloc<kConsumerRegs>();
+    const int tid = threadIdx.x;
+    const int tx = tid % 16, ty = tid / 16;
+    int st = 0;
+    uint32_t phase = 0;
+    for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+      int e, m0, n0;
+      tc::tile_coords(t, tiles_m, tiles_n, e, m0, n0);
+      float acc[8][8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
+      for (int i = 0; i < nk; ++i) {
+        hopper::mbar_wait(full_bar + 8 * st, phase);
+        // the x tile arrives swizzled: k values 4 q .. 4 q + 3 of row 4 ty +
+        // r (or 64 + 4 ty + r) lie in chunk q ^ (r + 4 (ty % 2)) of the row.
+        // For q = 4 kb + kl that is chunk (kl ^ r) + 4 (kb ^ (ty % 2)): one
+        // base a half step, the rest immediate offsets
+        const uint8_t* As = smem + st * L::stage + ty * 4 * 128;
+        const float* Bs = reinterpret_cast<const float*>(
+            smem + st * L::stage + L::a_bytes) + tx * 4;
+#pragma unroll
+        for (int kb = 0; kb < 2; ++kb) {
+          const uint8_t* Ab = As + 64 * (kb ^ (ty & 1));
+          const float* Bb = Bs + kb * 16 * kBN;
+#pragma unroll
+          for (int kl = 0; kl < 4; ++kl) {
+            float a[8][4];
+#pragma unroll
+            for (int r = 0; r < 8; ++r) {
+              const int row = r < 4 ? r : 64 + (r - 4);
+              const float4 v = *reinterpret_cast<const float4*>(
+                  Ab + row * 128 + ((kl ^ (r & 3)) << 4));
+              a[r][0] = v.x;
+              a[r][1] = v.y;
+              a[r][2] = v.z;
+              a[r][3] = v.w;
+            }
+#pragma unroll
+            for (int kk = 0; kk < 4; ++kk) {
+              const float* brow = Bb + (kl * 4 + kk) * kBN;
+              const float4 b0 = *reinterpret_cast<const float4*>(brow);
+              const float4 b1 = *reinterpret_cast<const float4*>(brow + 64);
+              const float b[8] = {b0.x, b0.y, b0.z, b0.w,
+                                  b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+              for (int r = 0; r < 8; ++r)
+#pragma unroll
+                for (int c = 0; c < 8; ++c)
+                  acc[r][c] = fmaf(a[r][kk], b[c], acc[r][c]);
+            }
+          }
+        }
+        hopper::mbar_arrive(empty_bar + 8 * st);
+        if (++st == kStages) {
+          st = 0;
+          phase ^= 1;
+        }
+      }
+      // epilogue: straight from the registers, rows < C and columns < F
+      // (F % 4 == 0: a 16-byte store is all in or all out); the next
+      // tile's loads are in flight meanwhile
+      float* oe = out + static_cast<int64_t>(e) * C * F;
+#pragma unroll
+      for (int r = 0; r < 8; ++r) {
+        const int m = m0 + (r < 4 ? ty * 4 + r : 64 + ty * 4 + (r - 4));
+        if (m >= C) continue;
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const int n = n0 + hh * 64 + tx * 4;
+          if (n < F)
+            *reinterpret_cast<float4*>(oe + static_cast<int64_t>(m) * F + n)
+                = make_float4(acc[r][4 * hh], acc[r][4 * hh + 1],
+                              acc[r][4 * hh + 2], acc[r][4 * hh + 3]);
+        }
+      }
+    }
+  }
+}
+
+int launch(const void* x, const void* w, void* out, int E, int C, int D,
+           int F, cudaStream_t stream) {
+  // x and w as 4-D tensors (innermost first, a unit axis last): x in boxes
+  // of 32 k values x 128 rows (swizzled), w in boxes of 128 columns x 32
+  // k rows (as they lie)
+  CUtensorMap tx, tw;
+  const uint64_t dx[4] = {static_cast<uint64_t>(D), static_cast<uint64_t>(C),
+                          static_cast<uint64_t>(E), 1};
+  const uint64_t dw[4] = {static_cast<uint64_t>(F), static_cast<uint64_t>(D),
+                          static_cast<uint64_t>(E), 1};
+  const uint32_t box_x[4] = {kBK, kBM, 1, 1};
+  const uint32_t box_w[4] = {kBN, kBK, 1, 1};
+  int rc = hopper::encode_tensor_map_f32(&tx, x, 4, dx, box_x, true);
+  if (rc == 0) rc = hopper::encode_tensor_map_f32(&tw, w, 4, dw, box_w, false);
+  if (rc != 0) return rc;
+  cudaError_t err = cudaFuncSetAttribute(
+      gemm_f32_tma, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int64_t tiles = static_cast<int64_t>(E) * ((C + kBM - 1) / kBM)
+      * ((F + kBN - 1) / kBN);
+  if (tiles > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
+  const int sms = tc::sm_count();
+  if (sms <= 0) return static_cast<int>(cudaErrorInvalidDevice);
+  const int blocks = tiles < sms ? static_cast<int>(tiles) : sms;
+  gemm_f32_tma<<<blocks, kThreads, kSmem, stream>>>(
+      tx, tw, static_cast<float*>(out), E, C, D, F);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace f32
+
 // dtype: 0 = float32, 1 = bfloat16.  x: (E, C, D); w: (E, D, F); out:
 // (E, C, F); contiguous, all of one dtype.
 extern "C" int expert_gemm_fwd(const void* x, const void* w, void* out,
@@ -681,5 +910,30 @@ extern "C" int expert_gemm_tc_attributes(int* regs, int* local_bytes,
   *regs = attr.numRegs;
   *local_bytes = static_cast<int>(attr.localSizeBytes);
   *smem_bytes = tc::kSmem;
+  return 0;
+}
+
+// float32 only; D % 4 == 0, F % 4 == 0; x, w and out 16-byte aligned.  x:
+// (E, C, D); w: (E, D, F); out: (E, C, F); contiguous.
+extern "C" int expert_gemm_f32_fwd(const void* x, const void* w, void* out,
+                                   int E, int C, int D, int F,
+                                   void* stream) {
+  if (E < 1 || C < 1 || D < 4 || F < 4 || D % 4 != 0 || F % 4 != 0
+      || !aligned16(x) || !aligned16(w) || !aligned16(out))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return f32::launch(x, w, out, E, C, D, F,
+                     static_cast<cudaStream_t>(stream));
+}
+
+// registers a thread at launch, local memory (spills) and dynamic shared
+// memory of the TMA-fed float32 kernel
+extern "C" int expert_gemm_f32_attributes(int* regs, int* local_bytes,
+                                          int* smem_bytes) {
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, f32::gemm_f32_tma);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  *regs = attr.numRegs;
+  *local_bytes = static_cast<int>(attr.localSizeBytes);
+  *smem_bytes = f32::kSmem;
   return 0;
 }

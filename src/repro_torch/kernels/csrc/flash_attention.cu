@@ -1,4 +1,4 @@
-// Flash attention (online softmax) for Hopper (sm_90a): two kernels.
+// Flash attention (online softmax) for Hopper (sm_90a): three kernels.
 //
 // Replaces the Pallas TPU kernel
 // repro/kernels/flash_attention.py::flash_attention together with its layout
@@ -15,22 +15,27 @@
 // running max starts at -1e30, the running sum l is clamped at 1e-30, and
 // the output is rounded once.  Key tiles wholly above the causal diagonal
 // or wholly outside the window are never loaded, as the TPU kernel skips
-// them.  The caller (kernels/flash_attention.py) picks the kernel by dtype
-// and head dim: bf16 with D a multiple of 8 takes the tensor-core kernel
-// (flash_attention_tc_fwd), float32 and any other D the CUDA-core kernel
-// (flash_attention_fwd).
+// them.  The caller (kernels/flash_attention.py::variant) picks the kernel
+// by dtype, head dim and the pointers' alignment: bf16 with D a multiple of
+// 8 takes the tensor-core kernel (flash_attention_tc_fwd), float32 with D
+// a multiple of 4 the TMA-fed float32 kernel (flash_attention_f32_fwd),
+// any other input (TMA needs 16-byte strides and bases) the CUDA-core
+// kernel (flash_attention_fwd).
 //
 // What bounds it on this card: at the serving shape (4, 1024, 16, 16, 64),
 // bf16, causal, the function moves 4 B S H D 2 bytes (33.6 MB: 10.0 us at
 // 3.35 TB/s) and does 4 B H D S(S+1)/2 operations (8.6 GFLOP: 8.7 us on
-// the bf16 tensor cores), near balanced.  The CUDA-core kernel cannot come
-// near that (>= 128 us on the 67 TFLOP/s float32 cores); the tensor-core
-// kernel does both products on wgmma.  Its P.V runs twice (P split into two
-// bf16 parts, below), 1.5x the tensor-core operations of one pass: 13 us,
-// still about the bytes' 10 us.  So the design keeps the tensor cores fed
-// from shared memory with loads in flight (TMA, a ring of K/V stages, a
-// producer warpgroup) and keeps the softmax cheap beside them (scores stay in
-// registers, masks only on edge tiles, row reductions as quad shuffles).
+// the bf16 tensor cores), near balanced.  In float32 (the TPU kernel's
+// float32 products: no TF32) the same operations take at least 128 us on
+// the 67 TFLOP/s float32 cores, against 67.1 MB (20 us): the FP32 FMA pipe
+// is the bound, and the TMA-fed float32 kernel is built to keep it
+// issuing.  The tensor-core kernel does both products on wgmma.  Its P.V
+// runs twice (P split into two bf16 parts, below), 1.5x the tensor-core
+// operations of one pass: 13 us, still about the bytes' 10 us.  So its
+// design keeps the tensor cores fed from shared memory with loads in
+// flight (TMA, a ring of K/V stages, a producer warpgroup) and keeps the
+// softmax cheap beside them (scores stay in registers, masks only on edge
+// tiles, row reductions as quad shuffles).
 //
 // Tensor-core kernel (bf16, D % 8 == 0, D <= 256).  One block per (batch x
 // query head, 64 NWG query rows): NWG consumer warpgroups of 64 rows each
@@ -67,21 +72,53 @@
 // (D is a multiple of 8), only d < D and rows < S.  No atomics: the order
 // of every sum is fixed, and a call repeats bit for bit.
 //
-// CUDA-core kernel (float32, the exact reference of the float32 prefills;
-// bf16 with D % 8 != 0, which TMA cannot describe: the stride between heads
-// must be a multiple of 16 bytes).  One block of 256 threads per (batch x
-// head, tile of 64 query rows).  Four neighbouring lanes own one query row:
-// lane l holds the 16-byte chunks l, l + 4, l + 8, ... of the row's q and
-// of its output accumulator in registers, so a score is 4 partial dot
-// products joined by two shuffles, and the four lanes of a row read one
-// 64-byte run of a key row with 16-byte loads (the other rows of the warp
-// read the same run: a broadcast, no bank conflict).  The block walks the
-// key/value tiles (BK rows, staged in shared memory as float32, rows padded
-// to a multiple of 4 with zeros) that the mask can reach.  Within a tile a
-// row takes 16 keys at a time: 16 scores into registers, their max, one
-// rescale of its accumulator and sum, then 16 updates p_j v_j.  The ragged
-// edge of the last tile (S not a multiple of BK) and query rows past S are
-// masked.
+// TMA-fed float32 kernel (float32, D % 4 == 0, D <= 256: every float32
+// prefill).  Both products are register-tiled GEMMs of FP32 FMAs on
+// shared-memory tiles.  One block per (batch x query head, 128 query rows;
+// 64 above D = 128) of eight warps, 16 rows each (8 above D = 128), the q
+// tiles in reverse order (longest causal rows first).  Q is loaded once
+// and the K/V tiles (64 keys at D <= 64, 32 above) stream through a ring
+// of three stages (two above D = 128), all by TMA with 128-byte swizzle in
+// boxes of 32 head-dim columns, on "full" / "empty" mbarriers; the 4-D
+// (D, heads, S, B) maps zero-fill past D and S (the ragged last tile), and
+// GQA reads the K/V head in place.  Thread 0 issues every load: it fills
+// the ring, then refills each stage once all 256 threads have released
+// it.  (A ninth, producer warp would cap every thread at 168 registers,
+// each SM sub-partition holding 16,384, and the kernel needs up to 254.)
+// A warp owns its rows alone: lane (rg, kg) = (lane / 8, lane % 8) holds
+// rows rg + 4 i and keys kg + 8 j of a tile, so
+//   - S = Q K^T: per 4 head-dim columns, 4 Q and 8 K 16-byte loads (the
+//     swizzle puts the rows a warp reads at once in distinct banks) feed
+//     128 FMAs into 32 scores, each the sum of two chains (even and odd
+//     4-column chunks) of D / 2 FMAs;
+//   - the online softmax in log2 units (log2 e folded into the scale,
+//     ex2.approx): masks only on edge tiles, a row's max over its 8 lanes
+//     by three shuffles, l summed per lane and joined once at the end;
+//   - P goes through the warp's own shared-memory rows (chunk j of row r
+//     at j ^ 2 (r % 4): conflict-free stores and 16-byte reads), with a
+//     __syncwarp, no block barrier;
+//   - O += P V: per 4 keys, 4 P and 4 NBOX V 16-byte loads feed 16 NBOX
+//     FMAs a row into 4 columns of each 32-column box.
+// Tiles above the diagonal or outside the window are skipped per warp (a
+// warp still releases them); the output is divided by l (clamped at
+// 1e-30), rounded once and stored 16 bytes a lane, rows < S.  No atomics:
+// a call repeats bit for bit.  No variant spills.
+//
+// CUDA-core kernel (float32 with D % 4 != 0 or unaligned inputs, and bf16
+// with D % 8 != 0: TMA cannot describe them, since the stride between
+// heads must be a multiple of 16 bytes).  One block of 256 threads per
+// (batch x head, tile of 64 query rows).  Four neighbouring lanes own one
+// query row: lane l holds the 16-byte chunks l, l + 4, l + 8, ... of the
+// row's q and of its output accumulator in registers, so a score is 4
+// partial dot products joined by two shuffles, and the four lanes of a
+// row read one 64-byte run of a key row with 16-byte loads (the other rows
+// of the warp read the same run: a broadcast, no bank conflict).  The
+// block walks the key/value tiles (BK rows, staged in shared memory as
+// float32, rows padded to a multiple of 4 with zeros) that the mask can
+// reach.  Within a tile a row takes 16 keys at a time: 16 scores into
+// registers, their max, one rescale of its accumulator and sum, then 16
+// updates p_j v_j.  The ragged edge of the last tile (S not a multiple of
+// BK) and query rows past S are masked.
 //
 // Plain C interface, loaded with ctypes: launches on the caller's stream,
 // does not synchronise, allocates nothing, and returns cudaGetLastError()
@@ -677,6 +714,384 @@ using V4 = Variant<4, 1>;
 
 }  // namespace tc
 
+namespace f32 {
+
+constexpr int kBox = 32;              // head-dim columns per TMA box
+constexpr int kRowBytes = 128;        // one box row: 32 float32
+constexpr int kWarps = 8;             // warps a block, two on each SMSP
+constexpr int kThreads = 32 * kWarps;
+constexpr float kNegInf = -1e30f;
+constexpr float kLog2e = 1.4426950408889634f;
+
+// Shared memory of one block, from a 1024-byte boundary: Q (NBOX boxes of
+// BM rows x 32 values), the K stages and the V stages (NBOX boxes of BK
+// rows each), all with 128-byte swizzle; then each warp's P (4 RPT rows x
+// BK values, chunk j of row r at chunk j ^ 2 (r % 4)); then the mbarriers
+// Q, full[STAGES], empty[STAGES].
+template <int NBOX, int RPT, int BK, int STAGES>
+struct Layout {
+  static constexpr int BM = kWarps * 4 * RPT;          // query rows a block
+  static constexpr uint32_t q_box = BM * kRowBytes;
+  static constexpr uint32_t kv_box = BK * kRowBytes;
+  static constexpr uint32_t q_bytes = NBOX * q_box;
+  static constexpr uint32_t kv_bytes = NBOX * kv_box;  // K or V of a stage
+  static constexpr uint32_t k_off = q_bytes;
+  static constexpr uint32_t v_off = k_off + STAGES * kv_bytes;
+  static constexpr uint32_t p_off = v_off + STAGES * kv_bytes;
+  static constexpr uint32_t p_warp = 4 * RPT * BK * 4;
+  static constexpr uint32_t bar_off = p_off + kWarps * p_warp;
+  static constexpr uint32_t bytes = bar_off + 8 * (1 + 2 * STAGES)
+      + 1024;                                  // slack for the alignment
+};
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+template <int BK>
+__device__ __forceinline__ void tile_range(int r_lo, int r_hi, int S,
+                                           int causal, int window,
+                                           int& first, int& end) {
+  first = window > 0 ? max(0, r_lo - window + 1) / BK : 0;
+  end = causal ? r_hi / BK + 1 : (S + BK - 1) / BK;
+}
+
+__device__ __forceinline__ float4 lds4(const uint8_t* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+// NBOX: 32-column boxes of the head dim (D <= 32 NBOX).  RPT: query rows
+// a lane owns (a warp owns 4 RPT).  BK: keys a tile.  STAGES: K/V tiles
+// in flight.
+template <int NBOX, int RPT, int BK, int STAGES>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_attention_f32_kernel(const __grid_constant__ CUtensorMap tm_q,
+                           const __grid_constant__ CUtensorMap tm_k,
+                           const __grid_constant__ CUtensorMap tm_v,
+                           float* __restrict__ out, int S, int H, int Kh,
+                           int D, float scale, int causal, int window) {
+  using L = Layout<NBOX, RPT, BK, STAGES>;
+  constexpr int BM = L::BM;
+  constexpr int WR = 4 * RPT;          // query rows a warp
+  constexpr int KPL = BK / 8;          // keys a lane, per tile
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = hopper::smem_u32(smem_raw);
+  const uint32_t pad = ((raw + 1023u) & ~1023u) - raw;
+  uint8_t* smem = smem_raw + pad;
+  const uint32_t q_s = raw + pad;
+  const uint32_t k_s = q_s + L::k_off;
+  const uint32_t v_s = q_s + L::v_off;
+  const uint32_t q_bar = q_s + L::bar_off;
+  const uint32_t full_bar = q_bar + 8;
+  const uint32_t empty_bar = q_bar + 8 * (1 + STAGES);
+
+  const int b = blockIdx.x / H;
+  const int h = blockIdx.x % H;
+  const int g = h / (H / Kh);
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BM;   // longest rows first
+  int t_first, t_end;
+  tile_range<BK>(q0, min(q0 + BM, S) - 1, S, causal, window, t_first, t_end);
+
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(q_bar, 1);
+    for (int st = 0; st < STAGES; ++st) {
+      hopper::mbar_init(full_bar + 8 * st, 1);
+      hopper::mbar_init(empty_bar + 8 * st, kThreads);
+    }
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+
+  // Q once, then K/V tile t into stage st, each completing on its barrier.
+  // Thread 0 issues them all: it fills the ring here and refills each
+  // stage once every thread has released it (below)
+  auto load_q = [&]() {
+    hopper::tma_prefetch_map(&tm_q);
+    hopper::tma_prefetch_map(&tm_k);
+    hopper::tma_prefetch_map(&tm_v);
+    hopper::mbar_arrive_expect_tx(q_bar, L::q_bytes);
+    for (int c = 0; c < NBOX; ++c)
+      hopper::tma_load_4d(q_s + c * L::q_box, &tm_q, q_bar, c * kBox, h, q0,
+                          b);
+  };
+  auto load_tile = [&](int t, int st) {
+    const uint32_t full = full_bar + 8 * st;
+    hopper::mbar_arrive_expect_tx(full, 2 * L::kv_bytes);
+    for (int c = 0; c < NBOX; ++c) {
+      const uint32_t off = st * L::kv_bytes + c * L::kv_box;
+      hopper::tma_load_4d(k_s + off, &tm_k, full, c * kBox, g, t * BK, b);
+      hopper::tma_load_4d(v_s + off, &tm_v, full, c * kBox, g, t * BK, b);
+    }
+  };
+  if (threadIdx.x == 0) {
+    load_q();
+    for (int i = 0; i < STAGES && t_first + i < t_end; ++i)
+      load_tile(t_first + i, i);
+  }
+
+  // Each warp owns WR query rows and runs both products and the softmax
+  // on them alone.  Lane (rg, kg) = (lane / 8, lane % 8) holds the scores
+  // of rows rg + 4 i (i < RPT) of its warp and keys kg + 8 j (j < KPL) of
+  // a tile, and the output of the same rows at columns 32 c + 4 kg .. + 3
+  // of each box c
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int rg = lane / 8, kg = lane % 8;
+  const int w_lo = q0 + WR * warp;
+  const int w_hi = min(w_lo + WR, S) - 1;
+  const bool w_ok = w_lo < S;
+  int my_first = t_end, my_end = t_end;          // none
+  if (w_ok)
+    tile_range<BK>(w_lo, w_hi, S, causal, window, my_first, my_end);
+  const float scale2 = scale * kLog2e;            // exp(x) = 2^(x log2 e)
+
+  // Q row rg + 4 i of this warp (block row WR warp + rg + 4 i, whose
+  // swizzle phase is rg + 4 (i % 2): WR warp is a multiple of 8) at
+  // chunk cq: row base + ((cq ^ rg ^ 4 (i % 2)) << 4)
+  const uint8_t* q_row = smem + (WR * warp + rg) * kRowBytes;
+  // K key kg + 8 j (phase kg) at chunk cq: ((cq ^ kg) << 4)
+  const uint8_t* k_lane = smem + L::k_off + kg * kRowBytes;
+  const uint8_t* v_base = smem + L::v_off;
+  // this lane's P rows: rg + 4 i; chunk jq of row r at jq ^ 2 (r % 4)
+  uint8_t* p_lane = smem + L::p_off + warp * L::p_warp + rg * BK * 4;
+  const int p_sw = (2 * rg) << 4;
+
+  float o[RPT][NBOX][4];
+#pragma unroll
+  for (int i = 0; i < RPT; ++i)
+#pragma unroll
+    for (int c = 0; c < NBOX; ++c)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[i][c][e] = 0.0f;
+  float m[RPT], l[RPT];
+#pragma unroll
+  for (int i = 0; i < RPT; ++i) {
+    m[i] = kNegInf;
+    l[i] = 0.0f;
+  }
+  if (w_ok) hopper::mbar_wait(q_bar, 0);
+
+  for (int t = t_first, it = 0; t < t_end; ++t, ++it) {
+    const int st = it % STAGES;
+    hopper::mbar_wait(full_bar + 8 * st, (it / STAGES) & 1);
+    if (t >= my_first && t < my_end) {
+      // S = Q K^T over the head dim, 4 columns at a time, into two
+      // partial sums a score (the even and the odd 4-column chunks): two
+      // chains of D / 2 FMAs, not one of D
+      float s[RPT][KPL], s2[RPT][KPL];
+#pragma unroll
+      for (int i = 0; i < RPT; ++i)
+#pragma unroll
+        for (int j = 0; j < KPL; ++j) {
+          s[i][j] = 0.0f;
+          s2[i][j] = 0.0f;
+        }
+      const uint8_t* k_st = k_lane + st * L::kv_bytes;
+#pragma unroll
+      for (int c = 0; c < NBOX; ++c) {
+#pragma unroll
+        for (int cq = 0; cq < 8; ++cq) {
+          const int kx = (cq ^ kg) << 4;
+          const int qx0 = (cq ^ rg) << 4;
+          const int qx1 = (cq ^ rg ^ 4) << 4;
+          float4 qv[RPT];
+#pragma unroll
+          for (int i = 0; i < RPT; ++i)
+            qv[i] = lds4(q_row + c * L::q_box + 4 * i * kRowBytes
+                         + ((i & 1) ? qx1 : qx0));
+#pragma unroll
+          for (int j = 0; j < KPL; ++j) {
+            const float4 kv = lds4(k_st + c * L::kv_box
+                                   + 8 * j * kRowBytes + kx);
+#pragma unroll
+            for (int i = 0; i < RPT; ++i) {
+              float& acc = (cq & 1) ? s2[i][j] : s[i][j];
+              acc = fmaf(qv[i].x, kv.x, acc);
+              acc = fmaf(qv[i].y, kv.y, acc);
+              acc = fmaf(qv[i].z, kv.z, acc);
+              acc = fmaf(qv[i].w, kv.w, acc);
+            }
+          }
+        }
+      }
+
+#pragma unroll
+      for (int i = 0; i < RPT; ++i)
+#pragma unroll
+        for (int j = 0; j < KPL; ++j) s[i][j] += s2[i][j];
+
+      // scale (into log2 units); mask only where the tile crosses the
+      // diagonal, the window's edge or the end of S; the online softmax
+      // over the 8 lanes of a row group; p into this warp's P rows
+      const int k0 = t * BK;
+      const bool edge = (causal && k0 + BK - 1 > w_lo)
+          || (window > 0 && k0 <= w_hi - window) || k0 + BK > S;
+#pragma unroll
+      for (int i = 0; i < RPT; ++i) {
+        const int row = w_lo + rg + 4 * i;
+        float mx = m[i];
+#pragma unroll
+        for (int j = 0; j < KPL; ++j) {
+          float x = s[i][j] * scale2;
+          if (edge) {
+            const int col = k0 + kg + 8 * j;
+            bool ok = col < S;
+            if (causal) ok = ok && col <= row;
+            if (window > 0) ok = ok && col > row - window;
+            x = ok ? x : kNegInf;
+          }
+          s[i][j] = x;
+          mx = fmaxf(mx, x);
+        }
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 4));
+        const float alpha = ex2(m[i] - mx);
+        m[i] = mx;
+        float ls = 0.0f;
+        float* p_row = reinterpret_cast<float*>(p_lane + 4 * i * BK * 4);
+#pragma unroll
+        for (int j = 0; j < KPL; ++j) {
+          const float p = ex2(s[i][j] - mx);
+          ls += p;
+          // key kg + 8 j: chunk 2 j + kg / 4, word kg % 4
+          const int chunk = (2 * j + kg / 4) ^ (2 * rg);
+          p_row[4 * chunk + kg % 4] = p;
+        }
+        l[i] = l[i] * alpha + ls;
+#pragma unroll
+        for (int c = 0; c < NBOX; ++c)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) o[i][c][e] *= alpha;
+      }
+      __syncwarp();
+
+      // O += P V, four keys at a time
+      const uint8_t* v_st = v_base + st * L::kv_bytes;
+#pragma unroll
+      for (int jq = 0; jq < BK / 4; ++jq) {
+        float4 pv[RPT];
+#pragma unroll
+        for (int i = 0; i < RPT; ++i)
+          pv[i] = lds4(p_lane + 4 * i * BK * 4 + ((jq << 4) ^ p_sw));
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          const int key = 4 * jq + kk;
+          const int vx = (kg ^ (key & 7)) << 4;
+#pragma unroll
+          for (int c = 0; c < NBOX; ++c) {
+            const float4 vv = lds4(v_st + c * L::kv_box + key * kRowBytes
+                                   + vx);
+#pragma unroll
+            for (int i = 0; i < RPT; ++i) {
+              const float p = kk == 0 ? pv[i].x : kk == 1 ? pv[i].y
+                  : kk == 2 ? pv[i].z : pv[i].w;
+              o[i][c][0] = fmaf(p, vv.x, o[i][c][0]);
+              o[i][c][1] = fmaf(p, vv.y, o[i][c][1]);
+              o[i][c][2] = fmaf(p, vv.z, o[i][c][2]);
+              o[i][c][3] = fmaf(p, vv.w, o[i][c][3]);
+            }
+          }
+        }
+      }
+      __syncwarp();          // P is rewritten by the next tile
+    }
+    hopper::mbar_arrive(empty_bar + 8 * st);
+    if (threadIdx.x == 0 && t + STAGES < t_end) {
+      hopper::mbar_wait(empty_bar + 8 * st, (it / STAGES) & 1);
+      load_tile(t + STAGES, st);
+    }
+  }
+
+  if (w_ok) {
+    // l is summed over the row group's lanes; divide, round once, and
+    // store the rows < S, 16 bytes a lane (D % 4 == 0)
+#pragma unroll
+    for (int i = 0; i < RPT; ++i) {
+      float li = l[i];
+      li += __shfl_xor_sync(0xffffffffu, li, 1);
+      li += __shfl_xor_sync(0xffffffffu, li, 2);
+      li += __shfl_xor_sync(0xffffffffu, li, 4);
+      const float inv = 1.0f / fmaxf(li, 1e-30f);
+      const int row = w_lo + rg + 4 * i;
+      if (row >= S) continue;
+      float* o_row = out + ((static_cast<int64_t>(b) * S + row) * H + h)
+          * D;
+#pragma unroll
+      for (int c = 0; c < NBOX; ++c) {
+        const int col = c * kBox + 4 * kg;
+        if (col < D)
+          *reinterpret_cast<float4*>(o_row + col) = make_float4(
+              o[i][c][0] * inv, o[i][c][1] * inv, o[i][c][2] * inv,
+              o[i][c][3] * inv);
+      }
+    }
+  }
+}
+
+template <int NBOX, int RPT, int BK, int STAGES>
+struct Variant {
+  static constexpr int kSmem =
+      static_cast<int>(Layout<NBOX, RPT, BK, STAGES>::bytes);
+  static constexpr int kBM = Layout<NBOX, RPT, BK, STAGES>::BM;
+
+  static int launch(const void* q, const void* k, const void* v, void* out,
+                    int B, int S, int H, int Kh, int D, float scale,
+                    int causal, int window, cudaStream_t stream) {
+    // q, k, v as 4-D tensors (D, heads, S, B) in boxes of 32 columns
+    CUtensorMap tq, tk, tv;
+    const uint64_t dq[4] = {static_cast<uint64_t>(D),
+                            static_cast<uint64_t>(H),
+                            static_cast<uint64_t>(S),
+                            static_cast<uint64_t>(B)};
+    const uint64_t dkv[4] = {static_cast<uint64_t>(D),
+                             static_cast<uint64_t>(Kh),
+                             static_cast<uint64_t>(S),
+                             static_cast<uint64_t>(B)};
+    const uint32_t box_q[4] = {kBox, 1, kBM, 1};
+    const uint32_t box_kv[4] = {kBox, 1, BK, 1};
+    int rc = hopper::encode_tensor_map_f32(&tq, q, 4, dq, box_q, true);
+    if (rc == 0)
+      rc = hopper::encode_tensor_map_f32(&tk, k, 4, dkv, box_kv, true);
+    if (rc == 0)
+      rc = hopper::encode_tensor_map_f32(&tv, v, 4, dkv, box_kv, true);
+    if (rc != 0) return rc;
+    auto kernel = flash_attention_f32_kernel<NBOX, RPT, BK, STAGES>;
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const dim3 grid(B * H, (S + kBM - 1) / kBM);
+    kernel<<<grid, kThreads, kSmem, stream>>>(
+        tq, tk, tv, static_cast<float*>(out), S, H, Kh, D, scale, causal,
+        window);
+    return static_cast<int>(cudaGetLastError());
+  }
+
+  static int attributes(int* regs, int* local_bytes, int* smem_bytes) {
+    cudaFuncAttributes attr;
+    cudaError_t err = cudaFuncGetAttributes(
+        &attr, flash_attention_f32_kernel<NBOX, RPT, BK, STAGES>);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    *regs = attr.numRegs;
+    *local_bytes = static_cast<int>(attr.localSizeBytes);
+    *smem_bytes = kSmem;
+    return 0;
+  }
+};
+
+// By head dim: 128 query rows a block (16 a warp, 4 a lane), but 64 (8,
+// 2) above D = 128, so that O stays at 64 registers a lane; 64-key tiles
+// in three stages at D <= 64, 32-key tiles above (64-key tiles ran at
+// half the speed at D = 128).
+using V2 = Variant<2, 4, 64, 3>;
+using V3 = Variant<3, 4, 32, 3>;
+using V4 = Variant<4, 4, 32, 3>;
+using V8 = Variant<8, 2, 32, 2>;
+
+}  // namespace f32
+
 // dtype: 0 = float32, 1 = bfloat16.  q, out: (B, S, H, D); k, v: (B, S, Kh,
 // D); contiguous.  scale = 1 / sqrt(D).
 extern "C" int flash_attention_fwd(const void* q, const void* k,
@@ -734,4 +1149,39 @@ extern "C" int flash_attention_tc_attributes(int D, int* regs,
     case 3: return tc::V3::attributes(regs, local_bytes, smem_bytes);
     default: return tc::V4::attributes(regs, local_bytes, smem_bytes);
   }
+}
+
+// float32 only, D % 4 == 0 and 4 <= D <= 256; q, k, v 16-byte aligned.
+// q, out: (B, S, H, D); k, v: (B, S, Kh, D); contiguous.  scale = 1 /
+// sqrt(D).
+extern "C" int flash_attention_f32_fwd(const void* q, const void* k,
+                                       const void* v, void* out, int B,
+                                       int S, int H, int Kh, int D,
+                                       float scale, int causal, int window,
+                                       void* stream) {
+  if (D % 4 != 0 || D < 4 || D > 256)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (D <= 64)
+    return f32::V2::launch(q, k, v, out, B, S, H, Kh, D, scale, causal,
+                           window, st);
+  if (D <= 96)
+    return f32::V3::launch(q, k, v, out, B, S, H, Kh, D, scale, causal,
+                           window, st);
+  if (D <= 128)
+    return f32::V4::launch(q, k, v, out, B, S, H, Kh, D, scale, causal,
+                           window, st);
+  return f32::V8::launch(q, k, v, out, B, S, H, Kh, D, scale, causal,
+                         window, st);
+}
+
+// registers a thread at launch, local memory (spills) and dynamic shared
+// memory of the float32 TMA kernel that head dim D runs
+extern "C" int flash_attention_f32_attributes(int D, int* regs,
+                                              int* local_bytes,
+                                              int* smem_bytes) {
+  if (D <= 64) return f32::V2::attributes(regs, local_bytes, smem_bytes);
+  if (D <= 96) return f32::V3::attributes(regs, local_bytes, smem_bytes);
+  if (D <= 128) return f32::V4::attributes(regs, local_bytes, smem_bytes);
+  return f32::V8::attributes(regs, local_bytes, smem_bytes);
 }

@@ -4,15 +4,17 @@
 //
 // Conventions.  Every shared-memory operand is a 32-bit address in the
 // shared window (``smem_u32``).  TMA tiles are loaded with 128-byte
-// swizzle, so each row of a box is 128 bytes (64 bf16 values) and the
-// swizzle pattern repeats every 8 rows (1024 bytes): a tile that wgmma
-// reads must start on a 1024-byte boundary.  The wgmma wrappers are the
+// swizzle, so each row of a box is 128 bytes (64 bf16 or 32 float32
+// values), the 16-byte chunk j of row r lies at chunk j ^ (r % 8), and
+// the pattern repeats every 8 rows (1024 bytes): a swizzled tile must
+// start on a 1024-byte boundary.  (The float32 kernels also load boxes
+// without swizzle, rows as they lie.)  The wgmma wrappers are the
 // bf16 x bf16 -> fp32 shapes the kernels use; a product of two bf16
 // values is exact in fp32.
 //
-// Host side: ``encode_tensor_map_bf16`` reaches the driver's
-// cuTensorMapEncodeTiled through cudaGetDriverEntryPoint, so a library
-// built from a source that includes this header needs no -lcuda.
+// Host side: ``encode_tensor_map`` (bf16 and float32 maps) reaches the
+// driver's cuTensorMapEncodeTiled through cudaGetDriverEntryPoint, so a
+// library built from a source that includes this header needs no -lcuda.
 #pragma once
 
 #include <cstdint>
@@ -339,21 +341,22 @@ inline EncodeTiledFn encode_tiled_fn() {
   return fn;
 }
 
-// A tensor map of a contiguous bf16 array of ``rank`` dims (``dims``
-// innermost first, the innermost dense), read in boxes of ``box``
-// elements with 128-byte swizzle; out-of-bounds elements read as zero.
-// Every stride must be a multiple of 16 bytes and ``ptr`` 16-byte
-// aligned.  Returns 0 or a cudaError_t.
-inline int encode_tensor_map_bf16(CUtensorMap* map, const void* ptr,
-                                  int rank, const uint64_t* dims,
-                                  const uint32_t* box) {
+// A tensor map of a contiguous array of ``rank`` dims (``dims``
+// innermost first, the innermost dense) of ``elem_bytes``-byte elements
+// of ``type``, read in boxes of ``box`` elements with ``swizzle``;
+// out-of-bounds elements read as zero.  Every stride must be a multiple
+// of 16 bytes and ``ptr`` 16-byte aligned.  Returns 0 or a cudaError_t.
+inline int encode_tensor_map(CUtensorMap* map, CUtensorMapDataType type,
+                             uint64_t elem_bytes, const void* ptr, int rank,
+                             const uint64_t* dims, const uint32_t* box,
+                             CUtensorMapSwizzle swizzle) {
   EncodeTiledFn fn = encode_tiled_fn();
   if (fn == nullptr) return static_cast<int>(cudaErrorNotSupported);
   cuuint64_t gdim[5];
   cuuint64_t gstride[4];
   cuuint32_t boxdim[5];
   cuuint32_t estride[5];
-  uint64_t stride = 2;
+  uint64_t stride = elem_bytes;
   for (int i = 0; i < rank; ++i) {
     gdim[i] = dims[i];
     boxdim[i] = box[i];
@@ -361,13 +364,31 @@ inline int encode_tensor_map_bf16(CUtensorMap* map, const void* ptr,
     if (i > 0) gstride[i - 1] = stride;
     stride *= dims[i];
   }
-  CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
-                  static_cast<cuuint32_t>(rank), const_cast<void*>(ptr),
-                  gdim, gstride, boxdim, estride,
-                  CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+  CUresult r = fn(map, type, static_cast<cuuint32_t>(rank),
+                  const_cast<void*>(ptr), gdim, gstride, boxdim, estride,
+                  CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                   CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                   CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
+// bf16 with 128-byte swizzle: each box row is 128 bytes (64 values)
+inline int encode_tensor_map_bf16(CUtensorMap* map, const void* ptr,
+                                  int rank, const uint64_t* dims,
+                                  const uint32_t* box) {
+  return encode_tensor_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, ptr,
+                           rank, dims, box, CU_TENSOR_MAP_SWIZZLE_128B);
+}
+
+// float32, with 128-byte swizzle (a box row of 32 values) or none (a box
+// row of up to 256 values, stored as it lies)
+inline int encode_tensor_map_f32(CUtensorMap* map, const void* ptr,
+                                 int rank, const uint64_t* dims,
+                                 const uint32_t* box, bool swizzle128) {
+  return encode_tensor_map(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, ptr,
+                           rank, dims, box,
+                           swizzle128 ? CU_TENSOR_MAP_SWIZZLE_128B
+                                      : CU_TENSOR_MAP_SWIZZLE_NONE);
 }
 
 }  // namespace hopper

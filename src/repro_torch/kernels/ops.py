@@ -264,8 +264,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     bfloat16), contiguous -> (B, S, H, D) in q's dtype (kernel K3).
 
     Takes ``H % Kh == 0`` and D <= 256, as the TPU kernel, and any S:
-    the TPU kernel asserts S up to 128 or a multiple of 128, where both
-    CUDA kernels mask a ragged last tile (zamba2's prompts of 1000
+    the TPU kernel asserts S up to 128 or a multiple of 128, where every
+    CUDA kernel masks a ragged last tile (zamba2's prompts of 1000
     tokens).  Forward-only."""
     _forward_only("flash_attention", q, k, v)
     dev = _common_device("flash_attention", q, k, v, meta=True)

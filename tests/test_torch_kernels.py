@@ -8,9 +8,9 @@ flash attention's and the expert GEMM's choice of kernel, the SSD
 scan's stage table, the build's cache key, the split-P product of the
 tensor-core flash attention, and — on a CUDA card only — the
 hand-written kernels (fill-aggregation, int8 quantize and dequantize,
-flash attention on both its kernels, the SSD chunk scan's stage kernels
+flash attention on its three kernels, the SSD chunk scan's stage kernels
 (without decay also against a float64 recurrence), expert GEMM on its
-three kernels) against their plain versions, bit for bit on a repeat
+four kernels) against their plain versions, bit for bit on a repeat
 where they take no atomics, with their launch counts.
 
 Tolerances: float32 sums of at most 8 terms taken in another order, so
@@ -734,8 +734,13 @@ def test_int8_tree_dequantize_rejects_what_the_kernels_do_not_take(case):
     (torch.bfloat16, 256, True, "tensor_core"),
     (torch.bfloat16, 36, True, "cuda_core"),       # heads not 16-byte apart
     (torch.bfloat16, 64, False, "cuda_core"),      # TMA needs 16-byte bases
-    (torch.float32, 64, True, "cuda_core"),        # the exact reference
-    (torch.float32, 36, True, "cuda_core")])
+    (torch.float32, 64, True, "fp32_tma"),         # float32 products, TMA
+    (torch.float32, 80, True, "fp32_tma"),
+    (torch.float32, 128, True, "fp32_tma"),
+    (torch.float32, 256, True, "fp32_tma"),
+    (torch.float32, 36, True, "fp32_tma"),         # 144-byte heads
+    (torch.float32, 30, True, "cuda_core"),        # heads not 16-byte apart
+    (torch.float32, 64, False, "cuda_core")])      # TMA needs 16-byte bases
 def test_flash_variant_is_chosen_by_dtype_and_head_dim(dtype, d, aligned,
                                                        expected):
     assert flash.variant(dtype, d, aligned) == expected
@@ -750,7 +755,13 @@ def test_flash_variant_is_chosen_by_dtype_and_head_dim(dtype, d, aligned,
     (torch.bfloat16, 100, 512, True, "mma_sync"),       # x rows not 16 B
     (torch.bfloat16, 1024, 70, True, "mma_sync"),       # w, out rows
     (torch.bfloat16, 5, 7, True, "mma_sync"),
-    (torch.float32, 1024, 512, True, "cuda_core"),      # the exact reference
+    (torch.float32, 1024, 512, True, "fp32_tma"),       # float32 products
+    (torch.float32, 512, 1024, True, "fp32_tma"),
+    (torch.float32, 200, 72, True, "fp32_tma"),         # D, F not of 32
+    (torch.float32, 4, 4, True, "fp32_tma"),
+    (torch.float32, 1024, 512, False, "cuda_core"),     # TMA: 16-byte bases
+    (torch.float32, 100, 70, True, "cuda_core"),        # w, out rows
+    (torch.float32, 30, 512, True, "cuda_core"),        # x rows
     (torch.float32, 5, 7, False, "cuda_core")])
 def test_expert_gemm_variant_is_chosen_by_dtype_shape_and_alignment(
         dtype, d, f, aligned, expected):
@@ -965,7 +976,10 @@ def test_cuda_int8_tree_kernels_repeat_bit_for_bit(cuda):
     (1, 128, 2, 1, 256),         # the largest head dim
     (4, 1024, 16, 16, 64),       # qwen1.5-0.5b's prefill
     (4, 1024, 16, 8, 64),        # granite-moe-1b-a400m's prefill (GQA)
-    (1, 256, 4, 2, 36)])         # D % 8 != 0: the CUDA-core kernel in bf16
+    (1, 256, 4, 2, 36),          # D % 8 != 0: the CUDA-core kernel in bf16
+    (1, 256, 4, 2, 30),          # D % 4 != 0: and in float32
+    (2, 1000, 2, 2, 128),        # the dense shelf's head dim, ragged S
+    (1, 1, 2, 1, 64)])           # one query, one key
 @pytest.mark.parametrize("causal,window", MASKS + [(True, 256), (False, 64)])
 def test_cuda_flash_attention_matches_plain_version(cuda, dtype, b, s, h, kh,
                                                     d, causal, window):
@@ -976,8 +990,7 @@ def test_cuda_flash_attention_matches_plain_version(cuda, dtype, b, s, h, kh,
     out = ops.flash_attention(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
     assert ops.LAUNCHES["flash_attention"] == before + 1
-    which = ("tensor_core" if dtype == "bfloat16" and d % 8 == 0
-             else "cuda_core")
+    which = flash.variant(q.dtype, d)
     assert {n: flash.VARIANT_LAUNCHES[n] - variants[n] for n in variants} \
         == {**dict.fromkeys(variants, 0), which: 1}
     assert out.dtype == q.dtype and out.shape == q.shape
@@ -1003,6 +1016,55 @@ def test_cuda_flash_attention_tensor_core_repeats_bit_for_bit(cuda, b, s, h,
     torch.cuda.synchronize()
     assert flash.VARIANT_LAUNCHES["tensor_core"] == before + 2
     assert torch.equal(first.view(torch.int16), second.view(torch.int16))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,h,kh,d", [(4, 1024, 16, 8, 64),
+                                         (1, 300, 4, 2, 80),
+                                         (1, 256, 4, 2, 128),
+                                         (1, 128, 2, 1, 256)])
+def test_cuda_flash_attention_fp32_repeats_bit_for_bit(cuda, b, s, h, kh,
+                                                       d):
+    """The TMA-fed float32 kernel sums in a fixed order (no atomics): the
+    same float32 call twice gives the same bits, at each of its four
+    variants."""
+    q, k, v = (torch.from_numpy(a).to(cuda)
+               for a in flash_np(b, s, h, kh, d, seed=7))
+    before = flash.VARIANT_LAUNCHES["fp32_tma"]
+    first = ops.flash_attention(q, k, v, window=256)
+    second = ops.flash_attention(q, k, v, window=256)
+    torch.cuda.synchronize()
+    assert flash.VARIANT_LAUNCHES["fp32_tma"] == before + 2
+    assert torch.equal(first.view(torch.int32), second.view(torch.int32))
+
+
+def offset_view(a, device):
+    """A contiguous copy of numpy array ``a`` on ``device`` that starts one
+    element past a 16-byte boundary (a view into a larger buffer)."""
+    buf = torch.zeros(a.size + 1, dtype=torch.float32, device=device)
+    t = buf[1:].view(a.shape)
+    t.copy_(torch.from_numpy(a))
+    return t
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal,window", MASKS)
+def test_cuda_flash_attention_misaligned_fp32_runs_cuda_core(cuda, causal,
+                                                             window):
+    """float32 q, k, v that start 4 bytes past a 16-byte boundary take the
+    CUDA-core kernel, which matches too."""
+    q, k, v = (offset_view(a, cuda)
+               for a in flash_np(1, 300, 4, 2, 64, seed=3))
+    assert q.is_contiguous() and q.data_ptr() % 16 == 4
+    variants = dict(flash.VARIANT_LAUNCHES)
+    out = ops.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert {n: flash.VARIANT_LAUNCHES[n] - variants[n] for n in variants} \
+        == {**dict.fromkeys(variants, 0), "cuda_core": 1}
+    rtol, atol = KERNEL_FLASH_TOL["float32"]
+    torch.testing.assert_close(
+        out, ref.flash_attention(q, k, v, causal=causal, window=window),
+        rtol=rtol, atol=atol)
 
 
 # K4 on the card: (shape, decay); the sweep's shapes at decay 0.1, then
@@ -1092,6 +1154,8 @@ def test_cuda_ssd_scan_counts_a_call_and_its_stage_launches(cuda):
     (1, 64, 64, 128),            # one tile, N = 128: the B operand's LBO
     (1, 128, 64, 256),           # two column tiles of one expert
     (2, 130, 8, 264),            # one contraction step, ragged everything
+    (3, 129, 36, 260),           # float32: ragged at multiples of 4
+    (2, 64, 100, 70),            # rows TMA cannot describe (w, out)
     (1, 1, 1, 1), (2, 3, 5, 7)])  # one element; odd everything
 def test_cuda_expert_gemm_matches_plain_version(cuda, dtype, e, c, d, f):
     tdt = getattr(torch, dtype)
@@ -1133,6 +1197,38 @@ def test_cuda_expert_gemm_tensor_core_repeats_bit_for_bit(cuda, e, c, d, f):
     torch.cuda.synchronize()
     assert egemm.VARIANT_LAUNCHES["tensor_core"] == before + 2
     assert torch.equal(first.view(torch.int16), second.view(torch.int16))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("e,c,d,f", [(32, 1280, 1024, 512),
+                                     (32, 1280, 512, 1024),
+                                     (2, 100, 200, 72)])
+def test_cuda_expert_gemm_fp32_repeats_bit_for_bit(cuda, e, c, d, f):
+    """The TMA-fed float32 kernel sums in a fixed order (no atomics): the
+    same float32 call twice gives the same bits."""
+    x, w = (torch.from_numpy(a).to(cuda) for a in gemm_np(e, c, d, f, seed=5))
+    before = egemm.VARIANT_LAUNCHES["fp32_tma"]
+    first = ops.expert_gemm(x, w)
+    second = ops.expert_gemm(x, w)
+    torch.cuda.synchronize()
+    assert egemm.VARIANT_LAUNCHES["fp32_tma"] == before + 2
+    assert torch.equal(first.view(torch.int32), second.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("e,c,d,f", [(2, 100, 200, 72),
+                                     (32, 1280, 1024, 512)])
+def test_cuda_expert_gemm_misaligned_fp32_runs_cuda_core(cuda, e, c, d, f):
+    """float32 x and w that start 4 bytes past a 16-byte boundary take the
+    CUDA-core kernel, which matches too."""
+    x, w = (offset_view(a, cuda) for a in gemm_np(e, c, d, f, seed=9))
+    assert x.is_contiguous() and x.data_ptr() % 16 == 4
+    variants = dict(egemm.VARIANT_LAUNCHES)
+    out = ops.expert_gemm(x, w)
+    torch.cuda.synchronize()
+    assert {n: egemm.VARIANT_LAUNCHES[n] - variants[n] for n in variants} \
+        == {**dict.fromkeys(variants, 0), "cuda_core": 1}
+    assert_gemm_close(out, ref.expert_gemm(x, w), "float32")
 
 
 @pytest.mark.cuda
