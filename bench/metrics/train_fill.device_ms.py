@@ -1,0 +1,10 @@
+"""Device ms a profiled generation launched inside its ``fill_train``
+span: the clients' local SGD and Algorithm 3, averaged over the
+generations profiled after the window."""
+
+
+def read(rec):
+    prof = [g for g in rec["gens"] if g["profiled"] and g["busy_ms"] > 0]
+    if not prof:
+        return None
+    return sum(g["device_ms"].get("fill_train", 0.0) for g in prof) / len(prof)
