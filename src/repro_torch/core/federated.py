@@ -9,22 +9,30 @@ as the same tensor, bit-unchanged.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, Sequence
+from typing import Callable, ContextManager, Dict, Sequence
 
 import torch
 
 from repro_torch.core.aggregate import fedavg
 from repro_torch.core.supernet import SupernetAPI
+from repro_torch.obs.telemetry import NULL_TELEMETRY
 from repro_torch.optim import sgd_init, sgd_update
 
 Params = Dict[str, torch.Tensor]
 
 
 def client_update_fn(api: SupernetAPI, epochs: int = 1,
-                     momentum: float = 0.5) -> Callable:
+                     momentum: float = 0.5,
+                     span: Callable[[str], ContextManager]
+                     = NULL_TELEMETRY.span) -> Callable:
     """Client update: E epochs of minibatch SGD from the downloaded
     (weight-inherited) master, on the selected subnet (Algorithm 4 lines
-    57-68).  Velocity starts at zero on every call."""
+    57-68).  Velocity starts at zero on every call.
+
+    ``span(name)`` gives the telemetry span each optimizer step runs
+    under (``"sgd_update"``); it is called at every step, so a backend
+    passes a function that reads its telemetry then, which the engine
+    attaches after the backend is built."""
 
     def update(params: Params, key, xb, yb, lr: float) -> Params:
         vel = sgd_init(params)
@@ -37,7 +45,9 @@ def client_update_fn(api: SupernetAPI, epochs: int = 1,
                                             allow_unused=True)
                 grads = {k: g for k, g in zip(leaves, grads)
                          if g is not None}
-                params, vel = sgd_update(params, grads, vel, lr, momentum)
+                with span("sgd_update"):
+                    params, vel = sgd_update(params, grads, vel, lr,
+                                             momentum)
         return params
 
     return update

@@ -106,7 +106,7 @@ def clients_in_turn(upd, master, key, xb, yb, lr) -> Params:
 
 
 def fill_bucket_partial(train, mask_fn, master, keys, xb, yb, w, lr,
-                        acc=None) -> Params:
+                        acc=None, span=NULL_TELEMETRY.span) -> Params:
     """Fused local SGD + Algorithm 3 partial sum over one shape bucket.
 
     ``train(master, key, xb, yb, lr)`` is one group's local SGD
@@ -116,12 +116,16 @@ def fill_bucket_partial(train, mask_fn, master, keys, xb, yb, w, lr,
     client).  Per group, trains the S clients and adds their uploads
     onto the running float32 sum ``acc`` (zeros when None) with
     ``aggregate.fill_partial`` — the same expression the non-fused
-    stacked aggregator uses.  Returns the running sum (callers pass it
-    on to the next bucket and cast it back to the master dtypes)."""
+    stacked aggregator uses, under the span ``span("fill_aggregate")``,
+    where the JAX package puts its label.  Returns the running sum
+    (callers pass it on to the next bucket and cast it back to the
+    master dtypes)."""
     for g, key in enumerate(keys):
         outs = train(master, key, xb[g], yb[g], lr)
-        masks = stacked_masks(mask_fn, outs, np.stack([key] * xb.shape[1]))
-        acc = fill_partial(master, outs, masks, w[g], acc)
+        with span("fill_aggregate"):
+            masks = stacked_masks(mask_fn, outs,
+                                  np.stack([key] * xb.shape[1]))
+            acc = fill_partial(master, outs, masks, w[g], acc)
     return acc
 
 
@@ -299,10 +303,15 @@ class LoopBackend:
         self.trace_counts: dict = {}
         self.update = traced(
             "client_update", self.trace_counts,
-            client_update_fn(api, cfg.local_epochs, cfg.momentum))
+            client_update_fn(api, cfg.local_epochs, cfg.momentum,
+                             span=self._span))
         self.evaluate = traced("evaluator", self.trace_counts,
                                eval_count_fn(api))
         self.dispatches = 0
+
+    def _span(self, name: str):
+        """The span ``name`` of the telemetry attached when it is called."""
+        return self.telemetry.span(name)
 
     @staticmethod
     def _alive(survivors, cid) -> bool:
@@ -321,15 +330,17 @@ class LoopBackend:
                     continue          # dropped: its upload never arrives
                 c = self.clients[int(cid)]
                 xb, yb = self._shard(c.train)
-                p_k = self.update(master, key, xb, yb, lr)
+                with self.telemetry.span("local_sgd"):
+                    p_k = self.update(master, key, xb, yb, lr)
                 self.dispatches += 1
                 uploads.append((p_k, self.api.trained_mask(p_k, key),
                                 c.weight))
         if not uploads:
             return master
         self.dispatches += 1
-        return fill_aggregate(master, uploads,
-                              backend=self.cfg.aggregate_backend)
+        with self.telemetry.span("fill_aggregate"):
+            return fill_aggregate(master, uploads,
+                                  backend=self.cfg.aggregate_backend)
 
     def train_fedavg(self, params, key, client_ids, lr, survivors=None):
         uploads = []
@@ -338,7 +349,9 @@ class LoopBackend:
                 continue
             c = self.clients[int(cid)]
             xb, yb = self._shard(c.train)
-            uploads.append((self.update(params, key, xb, yb, lr), c.weight))
+            with self.telemetry.span("local_sgd"):
+                uploads.append((self.update(params, key, xb, yb, lr),
+                                c.weight))
             self.dispatches += 1
         if not uploads:
             return params
@@ -403,6 +416,10 @@ class StackedClientBase:
         self.trace_counts: dict = {}
         self.cache_stats = {"train_store_hits": 0, "train_store_misses": 0,
                             "test_stack_hits": 0, "test_stack_misses": 0}
+
+    def _span(self, name: str):
+        """The span ``name`` of the telemetry attached when it is called."""
+        return self.telemetry.span(name)
 
     def _put(self, arr) -> torch.Tensor:
         return torch.as_tensor(arr, device=self.device)
@@ -626,7 +643,8 @@ class VmapBackend(StackedClientBase):
     def __init__(self, api: SupernetAPI, clients: Sequence[ClientDataset],
                  cfg: RunConfig):
         super().__init__(api, clients, cfg)
-        self.update = client_update_fn(api, cfg.local_epochs, cfg.momentum)
+        self.update = client_update_fn(api, cfg.local_epochs, cfg.momentum,
+                                       span=self._span)
         self.evaluate = eval_count_fn(api)
         self.donate_master = (cfg.fused and master_donation_safe(cfg)
                               and self.device.type == "cuda")
@@ -650,7 +668,8 @@ class VmapBackend(StackedClientBase):
 
     def _train(self, master, key, xb, yb, lr):
         """One group's local SGD -> {name: (S, ...)} stacked uploads."""
-        return clients_in_turn(self.update, master, key, xb, yb, lr)
+        with self.telemetry.span("local_sgd"):
+            return clients_in_turn(self.update, master, key, xb, yb, lr)
 
     # -- program bodies (one dispatch each) ---------------------------------
 
@@ -663,7 +682,7 @@ class VmapBackend(StackedClientBase):
         for k, xb, yb, w in buckets:
             acc = fill_bucket_partial(self._train, self.api.trained_mask,
                                       master, k, xb, yb, self._put(w), lr,
-                                      acc)
+                                      acc, span=self._span)
         donate = self.donate_master and master is self._own_master
         return cast_like(acc, master, donate=donate)
 
@@ -727,9 +746,10 @@ class VmapBackend(StackedClientBase):
             return master              # nobody survived: master untouched
         # per-group stacked uploads feed the batched fill directly (one
         # dispatch per chunk)
-        master = fill_aggregate_stacked(master, chunks,
-                                        mask_fn=self.api.trained_mask,
-                                        backend=self.cfg.aggregate_backend)
+        with self.telemetry.span("fill_aggregate"):
+            master = fill_aggregate_stacked(
+                master, chunks, mask_fn=self.api.trained_mask,
+                backend=self.cfg.aggregate_backend)
         self.dispatches += len(chunks)
         return master
 
@@ -750,9 +770,10 @@ class VmapBackend(StackedClientBase):
             self.dispatches += 1
             chunks = [(out, np.repeat(k, w.shape[1], axis=0), w.reshape(-1))
                       for (k, _, _, w), out in zip(buckets, outs)]
-            master = fill_aggregate_stacked(master, chunks,
-                                            mask_fn=self.api.trained_mask,
-                                            backend="kernel", total=1.0)
+            with self.telemetry.span("fill_aggregate"):
+                master = fill_aggregate_stacked(
+                    master, chunks, mask_fn=self.api.trained_mask,
+                    backend="kernel", total=1.0)
             self.dispatches += len(chunks)
             return master
         self._own_master = self._fused_fill(master, buckets, lr)

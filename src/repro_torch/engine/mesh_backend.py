@@ -103,7 +103,8 @@ class MeshBackend(StackedClientBase):
         if any(d.type != self.device.type for d in self.shard_devices):
             raise ValueError(f"{mesh} does not match RunConfig.device="
                              f"{cfg.device!r}")
-        self.update = client_update_fn(api, cfg.local_epochs, cfg.momentum)
+        self.update = client_update_fn(api, cfg.local_epochs, cfg.momentum,
+                                       span=self._span)
         self.evaluate = eval_count_fn(api)
         self.donate_master = (cfg.fused and master_donation_safe(cfg)
                               and self.device.type == "cuda")
@@ -130,7 +131,8 @@ class MeshBackend(StackedClientBase):
 
     def _train(self, master, key, xb, yb, lr):
         """One group's local SGD -> {name: (S, ...)} stacked uploads."""
-        return clients_in_turn(self.update, master, key, xb, yb, lr)
+        with self.telemetry.span("local_sgd"):
+            return clients_in_turn(self.update, master, key, xb, yb, lr)
 
     # -- placement ------------------------------------------------------------
 
@@ -172,7 +174,8 @@ class MeshBackend(StackedClientBase):
             for keys, xb, yb, w in buckets:
                 acc = fill_bucket_partial(
                     self._train, self.api.trained_mask, m, keys[i], xb[i],
-                    yb[i], torch.as_tensor(w[i], device=dev), lr, acc)
+                    yb[i], torch.as_tensor(w[i], device=dev), lr, acc,
+                    span=self._span)
             parts.append(acc)
         return parts
 
@@ -301,9 +304,10 @@ class MeshBackend(StackedClientBase):
             w = np.concatenate(w)
             chunks.append((outs, np.repeat(np.concatenate(keys), w.shape[1],
                                            axis=0), w.reshape(-1)))
-        master = fill_aggregate_stacked(master, chunks,
-                                        mask_fn=self.api.trained_mask,
-                                        backend="kernel", total=1.0)
+        with self.telemetry.span("fill_aggregate"):
+            master = fill_aggregate_stacked(master, chunks,
+                                            mask_fn=self.api.trained_mask,
+                                            backend="kernel", total=1.0)
         self.dispatches += len(chunks)
         return master
 

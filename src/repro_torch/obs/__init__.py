@@ -11,14 +11,14 @@ phase, on the host and on the device.
 """
 from repro_torch.obs.backend import InstrumentedBackend
 from repro_torch.obs.capture import load_trace, round_split
-from repro_torch.obs.gauges import (PeakLiveBytes, host_rss_bytes,
-                                    live_device_bytes, steady_mean)
+from repro_torch.obs.gauges import host_rss_bytes, live_device_bytes
 from repro_torch.obs.sinks import (JsonlSink, MemorySink, TableSink,
                                    event_dict, make_sink, parse_sink_spec)
 from repro_torch.obs.telemetry import (COMM_FIELDS, NULL_TELEMETRY, PHASES,
-                                       NullTelemetry, RoundEvent, Telemetry,
-                                       TelemetryConfig, TelemetryResult,
-                                       attach, innermost, signature, traced)
+                                       PORT_ONLY, NullTelemetry, RoundEvent,
+                                       Telemetry, TelemetryConfig,
+                                       TelemetryResult, attach, innermost,
+                                       signature, traced)
 
 __all__ = [
     "COMM_FIELDS",
@@ -28,7 +28,7 @@ __all__ = [
     "NULL_TELEMETRY",
     "NullTelemetry",
     "PHASES",
-    "PeakLiveBytes",
+    "PORT_ONLY",
     "RoundEvent",
     "TableSink",
     "Telemetry",
@@ -44,6 +44,5 @@ __all__ = [
     "parse_sink_spec",
     "round_split",
     "signature",
-    "steady_mean",
     "traced",
 ]

@@ -18,7 +18,12 @@ joins the two for one generation:
   * the generation's window runs from its first top-level span's start
     to the later of its last span's end and the end of the last device
     activity it launched; busy time is the union of those activities'
-    intervals, the idle share ``1 - busy / window``.
+    intervals, the idle share ``1 - busy / window``;
+  * each stretch of that window in which the device runs nothing is
+    put down to the innermost span open at its midpoint (``"between
+    spans"`` when none is): with the spans inside ``fill_train``
+    (``local_sgd``, ``sgd_update``, ``fill_aggregate``) it says which
+    part of the host's work the device waited on.
 
 Host times are the ``RoundEvent``'s (``time.perf_counter`` inside the
 engine), not the capture's: a profiled run's host is slower than an
@@ -88,14 +93,28 @@ def _union(intervals) -> float:
     return busy
 
 
+def _gaps(intervals, lo, hi) -> List[tuple]:
+    """The idle stretches of [lo, hi] between the merged intervals."""
+    out, end = [], lo
+    for s, e in sorted(intervals):
+        if s > end:
+            out.append((end, s))
+        end = max(end, e)
+    if hi > end:
+        out.append((end, hi))
+    return out
+
+
 def round_split(trace: Sequence[dict], events: Sequence, gen: int,
                 top: int = 5) -> Dict:
     """Generation ``gen`` of a profiled run, split by span path: for each
     path its host ms (the ``RoundEvent``'s), its entries, its ms in the
     capture (``trace_ms``), and the count and ms of the device activities
     launched inside it; the generation's device-busy ms, window ms and
-    idle share; the device ms launched outside every top-level span; the
-    ``top`` device activities by total time, as (name, calls, ms); and
+    idle share; the device's idle ms by the innermost span path open
+    over each idle stretch (``idle_ms``); the device ms launched outside
+    every top-level span; the ``top`` device activities by total time,
+    as (name, calls, ms); and
     ``consistent``: whether every path's capture ms is within 1 ms + 5 %
     of its host ms (the capture's spans are the ones the ``RoundEvent``
     timed).  ``events`` are the run's ``RoundEvent``s from generation 1
@@ -128,7 +147,14 @@ def round_split(trace: Sequence[dict], events: Sequence, gen: int,
     outside = sum(d for t, _, d, _ in acts
                   if not any(s <= t <= e for _, s, e in mine))
     end = max([hi] + [s + d for _, s, d, _ in acts])
-    busy = _union((s, s + d) for _, s, d, _ in acts)
+    ivs = [(s, s + d) for _, s, d, _ in acts]
+    busy = _union(ivs)
+    idle: Dict[str, float] = {}
+    for g0, g1 in _gaps(ivs, lo, end):
+        mid = (g0 + g1) / 2
+        open_ = [p for p, s, e in inner if s <= mid <= e]
+        name = max(open_, key=len) if open_ else "between spans"
+        idle[name] = idle.get(name, 0.0) + (g1 - g0) / 1e3
     by_name: Dict[str, list] = {}
     for _, _, d, name in acts:
         row = by_name.setdefault(name, [0, 0.0])
@@ -138,6 +164,6 @@ def round_split(trace: Sequence[dict], events: Sequence, gen: int,
                      key=lambda r: -r[2])[:top]
     return {"gen": gen, "round_s": event.round_s, "spans": paths,
             "device_busy_ms": busy / 1e3, "window_ms": (end - lo) / 1e3,
-            "idle_share": 1.0 - busy / (end - lo),
+            "idle_share": 1.0 - busy / (end - lo), "idle_ms": idle,
             "device_ms_outside_spans": outside / 1e3, "top": kernels,
             "consistent": consistent}

@@ -6,8 +6,9 @@ vocabulary, knobs and events:
 
   * ``Telemetry`` — nestable **phase spans** (``sample``,
     ``availability``, ``download``, ``fill_train``, ``aggregate``,
-    ``eval``, ``codec_encode``/``codec_decode``, ``host_fetch``)
-    recorded as ``time.perf_counter`` durations and accumulated per
+    ``eval``, ``codec_encode``/``codec_decode``, ``host_fetch``, and
+    inside ``fill_train`` the port's own ``local_sgd``, ``sgd_update``
+    and ``fill_aggregate``: ``PORT_ONLY``) recorded as ``time.perf_counter`` durations and accumulated per
     round under their nesting path (``"fill_train/codec_decode"``).
     With ``annotations`` each span also enters
     ``torch.profiler.record_function(name)``, so a profiler capture
@@ -67,8 +68,21 @@ from repro_torch.obs.sinks import MemorySink, make_sink, parse_sink_spec
 #   codec_encode uplink codec compression of the aggregated update
 #   codec_decode downlink codec roundtrip of a broadcast payload
 #   host_fetch   the per-call host read of the batched eval counts
+#   local_sgd    one group's local SGD (one client's on the loop backend):
+#                velocity init, the steps, the stacking of its uploads
+#   sgd_update   one optimizer step over a client's trained leaves
+#   fill_aggregate  one Algorithm 3 call inside a backend's train_fill
+#                (masks, the (m, P) flatten and K1, or fill_partial)
 PHASES = ("sample", "availability", "download", "fill_train", "aggregate",
-          "eval", "codec_encode", "codec_decode", "host_fetch")
+          "eval", "codec_encode", "codec_decode", "host_fetch",
+          "local_sgd", "sgd_update", "fill_aggregate")
+
+# Spans the port enters and the JAX package does not: ``local_sgd`` and
+# ``fill_aggregate`` are only ``jax.named_scope`` labels inside its fused
+# programs, and XLA compiles the optimizer update into the step.  A
+# comparison with the JAX package's round events drops every path that
+# holds one of these.
+PORT_ONLY = frozenset({"local_sgd", "sgd_update", "fill_aggregate"})
 
 # CommStats fields whose per-round deltas every RoundEvent carries
 COMM_FIELDS = ("down_bytes", "up_bytes", "down_wire_bytes", "up_wire_bytes",
@@ -259,6 +273,10 @@ NULL_TELEMETRY = NullTelemetry()
 
 
 class _Span:
+    """One entry of a span.  Its host time covers its own
+    ``record_function``, so the interval a profiler capture records for
+    it lies inside the one its ``RoundEvent`` times (``round_split``'s
+    ``consistent``), however many times the span is entered."""
     __slots__ = ("tel", "name", "t0", "rf")
 
     def __init__(self, tel: "Telemetry", name: str):
@@ -267,24 +285,24 @@ class _Span:
 
     def __enter__(self):
         tel = self.tel
+        self.t0 = time.perf_counter()
         if tel.annotations:
             self.rf = record_function(self.name)
             self.rf.__enter__()
         else:
             self.rf = None
         tel._stack.append(self.name)
-        self.t0 = time.perf_counter()
         return self
 
     def __exit__(self, *exc):
-        dt = time.perf_counter() - self.t0
         tel = self.tel
         path = "/".join(tel._stack)
-        tel._spans[path] = tel._spans.get(path, 0.0) + dt
-        tel._counts[path] = tel._counts.get(path, 0) + 1
         tel._stack.pop()
         if self.rf is not None:
             self.rf.__exit__(*exc)
+        dt = time.perf_counter() - self.t0
+        tel._spans[path] = tel._spans.get(path, 0.0) + dt
+        tel._counts[path] = tel._counts.get(path, 0) + 1
         return False
 
 
